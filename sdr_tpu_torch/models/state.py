@@ -2,8 +2,9 @@
 
 Port of sdr_tpu/models/state.py, leaf for leaf, so that a state converts
 one to one between the two packages (utils/convert.py).  All leaves have
-shape batch_shape + (...,).  The stereo and RDS states are not ported yet
-(ROADMAP.md queue A items 6-7); their slots stay None.
+shape batch_shape + (...,).  Which leaves are empty (..., 0) and which
+dtype a tail has depend on the engines, exactly as in the reference
+(`Receiver.init_state`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from sdr_tpu_torch.ops.pll import PLLState
 
 
 class FrontEndState(NamedTuple):
@@ -30,8 +33,31 @@ class MonoState(NamedTuple):
     deemph: torch.Tensor
 
 
+class StereoState(NamedTuple):
+    """Stereo path: channel/pilot BPF tails, pilot carrier state, mono delay
+    line and a separate stereo audio resampler tail."""
+    channel_tail: torch.Tensor
+    carrier_tail: torch.Tensor
+    pll: PLLState
+    mono_delay: torch.Tensor
+    stereo_audio_tail: torch.Tensor
+    deemph_l: torch.Tensor
+    deemph_r: torch.Tensor
+
+
+class RdsState(NamedTuple):
+    """RDS path: channel / carrier BPF tails, 57 kHz carrier state, the
+    all-pass delay, and the resampler and RRC tails."""
+    channel_tail: torch.Tensor
+    carrier_tail: torch.Tensor
+    pll: PLLState
+    delay: torch.Tensor
+    lpf_resamp_tail: torch.Tensor
+    rrc_tail: torch.Tensor
+
+
 class ReceiverState(NamedTuple):
     front: FrontEndState
     mono: MonoState
-    stereo: None = None
-    rds: None = None
+    stereo: StereoState | None = None
+    rds: RdsState | None = None

@@ -26,12 +26,11 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.ops.cuda import build
+from sdr_tpu_torch.ops.cuda.build import LAUNCHES  # noqa: F401  (re-export)
 from sdr_tpu_torch.ops.demod import fm_discriminator
 
 FIX_BITS = 14  # fixed-point fraction bits of the int8x2 coefficient limbs
 ENGINES = {"f32": 0, "bf16": 1, "int8": 2, "int8x2": 3}
-# launches of each CUDA kernel in this process (set to 0 to start a count)
-LAUNCHES = {"frontend_demod": 0, "frontend": 0}
 
 
 def _quantize_limbs(a: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:

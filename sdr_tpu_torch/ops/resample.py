@@ -113,4 +113,42 @@ class PolyphaseResampler:
             window.to(self.compute_dtype).to(torch.float32), self._weight,
             stride=self.down)                        # (batch, U, nsuper)
         y = out.transpose(1, 2).reshape(*lead, nsuper * self.up)
-        return y, x[..., n - self.state_len:]
+        return y, x[..., n - self.state_len:].clone()
+
+
+class MultiFIR:
+    """k plain FIRs (U=1, D=1) over the same input in one conv.
+
+    Port of sdr_tpu/ops/resample.py MultiFIR: the filters are the conv's
+    output channels, shorter ones zero-padded at high k, and the carried
+    tail (the last max_taps-1 inputs) is shared.  compute_dtype bf16 rounds
+    signal and taps to bf16 and accumulates in float32.
+    """
+
+    def __init__(self, coeffs: list[np.ndarray], *,
+                 compute_dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cpu"):
+        self.taps = max(len(c) for c in coeffs)
+        self.k = len(coeffs)
+        self.state_len = self.taps - 1
+        self.compute_dtype = compute_dtype
+        self.device = torch.device(device)
+        w = np.stack([np.pad(np.asarray(c, np.float32),
+                             (0, self.taps - len(c)))[::-1] for c in coeffs])
+        self._weight = torch.from_numpy(np.ascontiguousarray(w[:, None, :])
+                                        ).to(compute_dtype).to(
+            device=self.device, dtype=torch.float32)
+
+    def init_state(self, batch_shape: tuple[int, ...] = ()) -> torch.Tensor:
+        return torch.zeros(batch_shape + (self.state_len,),
+                           dtype=torch.float32, device=self.device)
+
+    def __call__(self, x: torch.Tensor, tail: torch.Tensor):
+        """x (..., N), tail (..., taps-1) -> (list of k float32 outputs,
+        new_tail)."""
+        *lead, n = x.shape
+        xp = torch.cat([tail, x], dim=-1).reshape(-1, 1, n + self.state_len)
+        out = torch.nn.functional.conv1d(
+            xp.to(self.compute_dtype).to(torch.float32), self._weight)
+        outs = [out[:, i].reshape(*lead, n) for i in range(self.k)]
+        return outs, x[..., n - self.state_len:].clone()

@@ -4,8 +4,9 @@
 (`jax.tree.map(np.asarray, state)`) and returns the port's state on a
 device; `state_to_numpy` goes the other way.  Every leaf keeps its shape
 and dtype, bf16 leaves included (numpy holds those as ml_dtypes.bfloat16,
-which torch cannot wrap, so they cross as their 16-bit patterns).  Only
-the ported parts of the state cross: stereo and RDS must be None.
+which torch cannot wrap, so they cross as their 16-bit patterns).  The
+stereo and RDS states and their carrier (PLL) states cross too; a slot
+that is None stays None.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdr_tpu_torch.models.state import FrontEndState, MonoState, ReceiverState
+from sdr_tpu_torch.models.state import (FrontEndState, MonoState, RdsState,
+                                        ReceiverState, StereoState)
+from sdr_tpu_torch.ops.pll import PLLState
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -32,22 +35,30 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+# the port's NamedTuple for each field of the tree that is itself a tuple
+_NESTED = {"front": FrontEndState, "mono": MonoState, "stereo": StereoState,
+           "rds": RdsState, "pll": PLLState}
+
+
+def _convert(node, cls, leaf):
+    """Rebuild `node` (any NamedTuple with cls's fields) as cls, converting
+    its leaves with `leaf` and its nested tuples by field name."""
+    if node is None:
+        return None
+    return cls(*(_convert(getattr(node, f), _NESTED[f], leaf)
+                 if f in _NESTED else leaf(getattr(node, f))
+                 for f in cls._fields))
+
+
 def state_from_numpy(tree, device: torch.device | str = "cpu"
                      ) -> ReceiverState:
     """Reference ReceiverState (numpy leaves) -> the port's ReceiverState."""
-    if tree.stereo is not None or tree.rds is not None:
-        raise NotImplementedError("only the mono state is ported "
-                                  "(ROADMAP.md queue A item 7)")
-    front = FrontEndState(*(_leaf_to_torch(getattr(tree.front, f), device)
-                            for f in FrontEndState._fields))
-    mono = MonoState(*(_leaf_to_torch(getattr(tree.mono, f), device)
-                       for f in MonoState._fields))
-    return ReceiverState(front=front, mono=mono)
+    return _convert(tree, ReceiverState,
+                    lambda a: _leaf_to_torch(a, device))
 
 
 def state_to_numpy(state: ReceiverState) -> ReceiverState:
     """The port's ReceiverState -> the same NamedTuples with numpy leaves,
-    ready for `jax.tree.map(jnp.asarray, ...)` on the reference's side."""
-    return ReceiverState(
-        front=FrontEndState(*map(_leaf_to_numpy, state.front)),
-        mono=MonoState(*map(_leaf_to_numpy, state.mono)))
+    ready for `jax.tree.map(jnp.asarray, ...)` on the reference's side
+    once rebuilt as its types (field for field)."""
+    return _convert(state, ReceiverState, _leaf_to_numpy)

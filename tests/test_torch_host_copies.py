@@ -1,6 +1,7 @@
-"""The port's copies of sdr_tpu's host-only modules equal their originals,
-and importing the port pulls in neither jax nor sdr_tpu (the GPU machine
-has no jax)."""
+"""The port's copies of sdr_tpu's host-only modules (config, firdes, tx,
+wav, compare and the RDS host decoder) equal their originals, and
+importing the port pulls in neither jax nor sdr_tpu (the GPU machine has
+no jax)."""
 
 import dataclasses
 import os
@@ -15,11 +16,15 @@ from sdr_tpu import config as jcfg
 from sdr_tpu import tx as jtx
 from sdr_tpu.io import wav as jwav
 from sdr_tpu.ops import firdes as jfirdes
+from sdr_tpu.rds import streaming as jstreaming
+from sdr_tpu.rds import tx as jrds_tx
 from sdr_tpu.utils import compare as jcompare
 from sdr_tpu_torch import config as tcfg
 from sdr_tpu_torch import tx as ttx
 from sdr_tpu_torch.io import wav as twav
 from sdr_tpu_torch.ops import firdes as tfirdes
+from sdr_tpu_torch.rds import streaming as tstreaming
+from sdr_tpu_torch.rds import tx as trds_tx
 from sdr_tpu_torch.utils import compare as tcompare
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,6 +101,49 @@ def test_wav_and_compare_copies_equal(tmp_path):
         assert getattr(tcompare, name)(*args) == getattr(jcompare, name)(*args)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(pi=0x3D44, ps_name="TPU FM  ", n_groups=10),
+    dict(pi=0x1234, pty=10, ps_name="MODE2   ", radio_text="HELLO",
+         n_groups=6)])
+def test_rds_tx_copy_equal(kw):
+    bits = trds_tx.standard_group_stream(**kw)
+    np.testing.assert_array_equal(bits, jrds_tx.standard_group_stream(**kw))
+    for fs in (38_000.0, 2_400_000.0):
+        got = trds_tx.bits_to_baseband(bits, fs)
+        want = jrds_tx.bits_to_baseband(bits, fs)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("polarity,noise", [(1.0, 0.1), (-1.0, 0.4)])
+def test_streaming_rds_decoder_copy_equal(polarity, noise):
+    """The same soft stream, pushed in uneven blocks, gives the same
+    groups and StationInfo in both packages (the inverted stream takes the
+    polarity search, the noisier one the burst correction)."""
+    bits = trds_tx.standard_group_stream(pi=0x3D44, ps_name="TPU FM  ",
+                                         n_groups=10)
+    bb = trds_tx.bits_to_baseband(bits, 38_000.0)
+    rng = np.random.default_rng(2)
+    soft = (polarity * (bb + rng.normal(0, noise * np.std(bb), bb.shape))
+            ).astype(np.float32)
+    decoders = (tstreaming.StreamingRdsDecoder(16),
+                jstreaming.StreamingRdsDecoder(16))
+    groups = ([], [])
+    for i in range(0, len(soft), 777):
+        for g, d in zip(groups, decoders):
+            g.extend(d.push(soft[i:i + 777]))
+    tg, jg = groups
+    assert len(tg) == len(jg) >= 3
+    for a, b in zip(tg, jg):
+        assert dataclasses.asdict(a).keys() == dataclasses.asdict(b).keys()
+        for k, v in dataclasses.asdict(b).items():
+            np.testing.assert_array_equal(dataclasses.asdict(a)[k], v)
+    ti, ji = decoders[0].info, decoders[1].info
+    assert dataclasses.asdict(ti) == dataclasses.asdict(ji)
+    assert ti.pi == 0x3D44 and ti.ps_name == "TPU FM  "
+    assert decoders[0].bits_corrected == decoders[1].bits_corrected
+
+
 def test_port_imports_no_jax():
     """A fresh interpreter in which jax and sdr_tpu cannot be imported
     loads the port's package, receiver, CUDA wrapper and CLI."""
@@ -108,8 +156,18 @@ def test_port_imports_no_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import sdr_tpu_torch, sdr_tpu_torch.models.receiver\n"
         "import sdr_tpu_torch.cli, sdr_tpu_torch.ops.cuda.frontend_kernel\n"
+        "import sdr_tpu_torch.ops.cuda.ifbank_kernel\n"
+        "import sdr_tpu_torch.ops.cuda.ffmix_kernel\n"
+        "import sdr_tpu_torch.ops.cuda.audio_kernel\n"
         "import sdr_tpu_torch.ops.cuda.build, sdr_tpu_torch.utils.convert\n"
+        "import sdr_tpu_torch.ops.pll, sdr_tpu_torch.ops.pointwise\n"
+        "import sdr_tpu_torch.rds, sdr_tpu_torch.rds.streaming\n"
+        "import sdr_tpu_torch.rds.tx, sdr_tpu_torch.rds.correct\n"
         "import sdr_tpu_torch.tx, sdr_tpu_torch.utils.compare\n"
+        "from sdr_tpu_torch.models.receiver import Receiver\n"
+        "Receiver(0, stereo=True, rds=True, fused_frontend='int8',\n"
+        "         pll_impl='ff', conv_dtype='bf16', conv_engine='tiled',\n"
+        "         fused_ifbank='bf16').init_state((2,))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'sdr_tpu']\n"
         "print('ok')\n")
