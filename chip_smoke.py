@@ -6,12 +6,12 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from csrc/, holds each kernel against its plain
-PyTorch version on the card (phases 2, 2b and 2c: the front end, the
-feedforward stereo + RDS kernels, then the IF bank's four-stream variant
-and the carrier loops), drives the receiver through its entry points, and
-checks the audio and the RDS decode.  Each path runs with the launch
-counts set to 0 and names the kernels it must launch and those it must
-not:
+PyTorch version on the card (phases 2, 2b, 2c and 2d: the front end, the
+feedforward stereo + RDS kernels, the IF bank's four-stream variant and
+the carrier loops, then the wideband channelizer), drives the receivers
+through their entry points, and checks the audio and the RDS decode.
+Each path runs with the launch counts set to 0 and names the kernels it
+must launch and those it must not:
   - mono: the CLI with --fast and --exact-fast, 128-station steps;
   - stereo + RDS (--fast): the CLI `0 2 --rds --fast`, 128-station steps
     held to the CPU; mode 2: the CLI `2 2 --rds --fast`;
@@ -22,15 +22,22 @@ not:
     profile (both loops in one chunked launch), held to the CPU; the same
     with the four-stream bf16 IF bank;
   - loop engines, one station: 'pallas', 'pallas_chunked' and 'chunked'
-    on the 1.2 s capture, decoding the tones and the RDS groups.
+    on the 1.2 s capture, decoding the tones and the RDS groups;
+  - wideband: the CLI's `--wideband` with --fast (two stations, and
+    `--scan`) and 64-station WidebandReceiver steps of the --fast
+    profiles held to the CPU; wideband default: the CLI without --fast
+    (the scan loops on the channelized stations) and the default
+    profile's 64-station steps.
 Every phase raises on failure, so a failure exits non-zero and prints no
 result.  The last line of stdout is {"ok": true, "device": {...}}; the
 line before it lists every kernel with its launches on the path that runs
-it, its error against the plain version and both times (phase 2c's
-entries name the lengths compared).
+it, its error against the plain version, both times, its bound on the
+card from this run's shapes (`roofline`) and, where one PyTorch call
+computes the same function, that call's time (phase 2c's entries name
+the lengths compared).
 Imports nothing of jax or sdr_tpu.  It also prints torch.profiler
-breakdowns of the 128-station steps (device time by kernel, busy time,
-host enqueue time per step).
+breakdowns of the 128-station and wideband steps (device time by kernel,
+busy time, host enqueue time per step).
 """
 
 from __future__ import annotations
@@ -97,6 +104,8 @@ KERNELS = {   # LAUNCHES key -> (source, TPU kernel it replaces)
                     "sdr_tpu/ops/pallas/pll_kernel.py:90"),
     "pll_chunked_multi": ("sdr_tpu_torch/csrc/pll.cu",
                           "sdr_tpu/ops/pallas/pll_kernel.py:199"),
+    "mfb": ("sdr_tpu_torch/csrc/channelizer.cu",
+            "sdr_tpu/ops/pallas/channelizer_kernel.py:57 _mfb_kernel"),
 }
 # the path whose launch counts each kernel's entry reports
 KERNEL_PATH = {"frontend_demod": "mono", "frontend": "mono",
@@ -105,11 +114,84 @@ KERNEL_PATH = {"frontend_demod": "mono", "frontend": "mono",
                "ifbank": "stereo+RDS ifbank joint",
                "pll": "stereo+RDS default",
                "pll_chunked": "loop engines, one station",
-               "pll_chunked_multi": "stereo+RDS joint"}
+               "pll_chunked_multi": "stereo+RDS joint", "mfb": "wideband"}
+# the wideband configuration (bench.py:171-204, BASELINE.md:219-229): one
+# 9.6 MS/s u8 antenna stream, 64 stations across +-4 MHz
+FS_WIDE = 9.6e6
+WIDE_FREQS = [-4.0e6 + 8.0e6 * i / 63 for i in range(64)]
+WIDE_BLOCKS_PER_STEP = 16
+# the wideband CLI's receiver profiles (sdr_tpu/cli.py:316-318)
+WIDE_FAST = dict(fused_frontend=False, pll_impl="ff")
+WIDE_DEFAULT = dict(fused_frontend=False, pll_impl="auto")
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def roofline(nbytes: float, ops: dict) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the HBM rate and the operations over the
+    peak rate of their type (summed over the types)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_OPS_S[t] for t, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_work(name: str, c: int, n: int) -> tuple[float, dict]:
+    """Bytes each kernel must move (each input read once, each output
+    written once) and the operations it does, by type, at its checked
+    shape: c channels of n input bytes (B1/B2) or n IF samples (the rest).
+    Operation counts: a FIR tap is a multiply and an add; the
+    discriminator 9 a sample, the carrier synthesis 10, a carrier-loop
+    sample ~50 (detector, PI update, phase, NCO)."""
+    tail = 128
+    if name in ("frontend_demod", "frontend"):
+        m = n // 20                                  # IF samples, D = 10
+        out = c * m * 2 if name == "frontend_demod" else 2 * c * m * 4
+        ops = {"int8": c * m * 2 * 51 * 2}
+        if name == "frontend_demod":
+            ops["f32"] = c * m * 9
+        return c * n + 2 * c * tail + out + 4 * c * 4, ops
+    if name == "ifbank_mix":
+        nbytes = c * n * 2 + 2 * c * n * 2 + 4 * c * (n // 256) * 4
+        return nbytes + 2 * c * tail * 2, {"bf16": c * n * 4 * 51 * 2,
+                                           "f32": c * n * 9}
+    if name == "ifbank":
+        return (c * n * 2 + 4 * c * n * 2 + 2 * c * tail * 2,
+                {"bf16": c * n * 4 * 51 * 2, "f32": c * n})
+    if name == "ffmix":
+        params = 2 * 2 * c * (n // 256) * 4
+        return (2 * c * n * 2 + c * tail * 2 + params + 2 * c * n * 2,
+                {"f32": c * n * 10})
+    if name == "audio_pair":
+        m = n // 5
+        return (2 * c * n * 2 + 4 * c * tail * 2 + 2 * c * m * 4,
+                {"bf16": 2 * c * m * 51 * 2})
+    g = {"pll": 1, "pll_chunked": 1, "pll_chunked_multi": 2}[name]
+    return g * (2 * c * n * 4 + 2 * 5 * c * 4), {"f32": g * c * n * 50}
+
+
+def mfb_work(pl, n_out: int, ingest: str, compute: str,
+             out: str) -> tuple[float, dict]:
+    """Bytes and operations of B7 over n_out output columns: the stream
+    and its carried tail read once, the non-zero bank (2K rows x 2*taps
+    taps), the phasor tables and both outputs; a multiply and an add for
+    each non-zero tap of each of the 2K rows (in the compute dtype), and
+    12 float32 operations a station and column for the rotation."""
+    from sdr_tpu_torch.ops.cuda.channelizer_kernel import (
+        EXT, _largest_tile_at_most)
+    two_d, k, taps = 2 * pl.decim, pl.k, pl.taps
+    tile = _largest_tile_at_most(n_out, pl.tile)
+    nbytes = (two_d * (n_out + EXT) * (1 if ingest == "u8" else 4)
+              + 2 * k * 2 * taps * 4 + 2 * k * (n_out // tile + tile) * 4
+              + 2 * k * n_out * (2 if out == "bf16" else 4))
+    ops = {"f32": 12 * k * n_out}
+    ops[compute] = ops.get(compute, 0) + 2 * (2 * k) * (2 * taps) * n_out
+    return nbytes, ops
 
 
 def card_info() -> str:
@@ -431,10 +513,19 @@ def check_stereo_kernels(blocks, device, reps: int = 10) -> dict:
     ms, plain_ms = timed(
         lambda: pair(fm_bf16[0], mixed[0], t0, t0),
         lambda: pair_reference(pair, fm_bf16[0], mixed[0], t0, t0))
-    results["audio_pair"] = (err, ms, plain_ms)
+    # the library yardstick: one strided conv1d over tail ++ input of both
+    # streams, bf16 as the kernel reads them (the port never calls it)
+    ctx = pair.taps - 1
+    xp = torch.cat([torch.cat([t0[:, 128 - ctx:], x], dim=-1)
+                    for x in (fm_bf16[0], mixed[0])]).unsqueeze(1)
+    weight = pair._weight.to(bf16)
+    library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(
+        xp, weight, stride=pair.down), reps)
+    results["audio_pair"] = (err, ms, plain_ms, library_ms)
     log(f"kernel audio_pair/bf16: (C={c}, n={fm_bf16[0].shape[-1]}) max|err| "
-        f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    del rx, bank_outs, fm_bf16, mixed
+        f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one "
+        f"F.conv1d of both streams {library_ms:.4f} ms")
+    del rx, bank_outs, fm_bf16, mixed, xp
     torch.cuda.empty_cache()
     return results
 
@@ -612,6 +703,90 @@ def check_loop_kernels(blocks, device, reps: int = 5) -> dict:
     return results
 
 
+def check_channelizer(device, reps: int = 20) -> dict:
+    """B7 against its plain version at the kernel-check shape of
+    bench.py:171-204 (64 stations across +-4 MHz, 2^20 wideband pairs a
+    call: 262,144 output columns), three consecutive calls with state
+    carry, over the grid of ingest (u8, f32), compute (f32, bf16) and
+    output (f32, bf16) dtypes.  Each call runs the kernel on the flat
+    stream and on the pre-phased (2D, N/D) layout: the two must agree bit
+    for bit and hold the same carried state as the plain version; the
+    kernel is within 2e-5 of max|plain| (another summation order; plus
+    one bf16 ulp for a bf16 output).  Times the kernel on both layouts,
+    the plain version and, as the library yardstick, the cuBLAS
+    torch.matmul of the bank (2Kp x 2D*n_shift) against the materialized
+    im2col (the GEMM alone, without the rotation; the port never calls
+    it).  Returns {variant: (max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+    from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+    from sdr_tpu_torch.ops.cuda.channelizer_kernel import (
+        EXT, call_cols_reference)
+    n_wide = 1 << 20
+    rng = np.random.default_rng(0)
+    results, library_ms = {}, None
+    for ingest, compute, out in (("u8", "f32", "f32"), ("u8", "bf16", "f32"),
+                                 ("u8", "bf16", "bf16"),
+                                 ("f32", "f32", "f32"),
+                                 ("f32", "bf16", "f32")):
+        chan = WidebandChannelizer(FS_WIDE, 2.4e6, WIDE_FREQS, engine="pallas",
+                                   ingest=ingest, compute_dtype=compute,
+                                   out_dtype=out, device=device)
+        pl = chan._pl
+        two_d, n_out = 2 * pl.decim, n_wide // pl.decim
+        name = f"{ingest}/{compute}->{out}"
+        s_flat = s_cols = s_plain = pl.init_state()
+        err = 0.0
+        for b in range(3):
+            if ingest == "u8":
+                flat = torch.randint(0, 256, (2 * n_wide,), dtype=torch.uint8,
+                                     device=device)
+            else:
+                flat = 0.3 * torch.randn(2 * n_wide, device=device)
+            xbt = flat.reshape(n_out, two_d).T.contiguous()
+            (i_f, q_f), s_flat = pl(flat, s_flat)
+            (i_c, q_c), s_cols = pl.call_cols(xbt, s_cols)
+            (i_p, q_p), s_plain = call_cols_reference(pl, xbt, s_plain)
+            torch.cuda.synchronize()
+            if not (torch.equal(i_f, i_c) and torch.equal(q_f, q_c)):
+                raise AssertionError(f"mfb/{name} call {b}: flat and "
+                                     "pre-phased layouts differ")
+            for key in s_plain:
+                if not (torch.equal(s_flat[key], s_plain[key])
+                        and torch.equal(s_cols[key], s_plain[key])):
+                    raise AssertionError(f"mfb/{name} call {b}: carried "
+                                         f"{key} differs")
+            for g, w, what in ((i_c, i_p, "I"), (q_c, q_p, "Q")):
+                err = max(err, max_err(g, w, 2e-5, out == "bf16",
+                                       f"mfb/{name} {what} call {b}"))
+        st = pl.init_state()
+        ms = cuda_ms(lambda: pl.call_cols(xbt, st), reps)
+        flat_ms = cuda_ms(lambda: pl(flat, st), reps)
+        plain_ms = cuda_ms(lambda: call_cols_reference(pl, xbt, st), 3)
+        if library_ms is None:
+            x = torch.cat([st["tail"], xbt], dim=1).float()
+            if ingest == "u8":
+                x = (x - 128.0) / 128.0
+            win = x[:, EXT - pl.t_cols:EXT - pl.t_cols + n_out
+                    + pl._n_shift - 1]
+            xim = win.unfold(1, n_out, 1).transpose(0, 1).reshape(-1, n_out
+                                                                  ).clone()
+            library_ms = cuda_ms(lambda: torch.matmul(pl._bm_dev, xim), reps)
+            del x, win, xim
+        bound_ms, bound_by = roofline(*mfb_work(pl, n_out, ingest, compute,
+                                                out))
+        results[name] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
+        log(f"kernel mfb/{name}: (K={pl.k}, 2D={two_d}, n_out={n_out}, bank "
+            f"{2 * pl.kp}x{two_d * pl._n_shift}) max|err| {err:.3g}, kernel "
+            f"{ms:.4f} ms (flat stream {flat_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, cuBLAS GEMM alone {library_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        del chan, pl, flat, xbt, i_f, q_f, i_c, q_c, i_p, q_p
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ phase 3
 def run_cli(device: str, seconds: float = 1.23) -> None:
     """The CLI's mono path with --fast and --exact-fast, in-process, and the
@@ -742,6 +917,101 @@ def run_cli_stereo(device: str, mode: int, seconds: float = 1.2,
         for line in text.splitlines():
             if line.startswith(("processed", "step latency")):
                 log(f"  {line}")
+
+
+WIDE_CLI_FREQS = (-1.2e6, 1.5e6)
+WIDE_CLI_TONES = (800.0, 1300.0)
+
+
+def wideband_cli_capture(seconds: float = 1.0):
+    """Two stereo FM stations at -1.2 and +1.5 MHz in one 9.6 MS/s
+    stream (numpy: the interleaved f32 stream and its u8 form): station k
+    carries WIDE_CLI_TONES[k] on both sides and RDS groups of PI
+    0x2000 + k."""
+    import numpy as np
+    from sdr_tpu_torch import tx
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.ops.channelizer import synthesize_wideband
+    from sdr_tpu_torch.rds import tx as rds_tx
+    fs = float(MODES[0].rf_fs)
+    n = int(seconds * fs)
+    stations = []
+    for k, tone_f in enumerate(WIDE_CLI_TONES):
+        bits = rds_tx.standard_group_stream(
+            pi=0x2000 + k, n_groups=int(seconds * 1187.5 / 104) + 3)
+        tone = tx.tone(fs, tone_f, n)
+        m = tx.make_multiplex(
+            fs, n, left=tone, right=tone,
+            rds_baseband=rds_tx.bits_to_baseband(bits, fs)[:n], a_rds=0.1)
+        i, q = tx.fm_modulate(m, fs)
+        stations.append((i + 1j * q) * 0.35)
+    iw, qw = synthesize_wideband(stations, list(WIDE_CLI_FREQS), fs, FS_WIDE)
+    wide = np.empty(2 * len(iw), np.float32)
+    wide[0::2], wide[1::2] = iw, qw
+    u8 = np.clip(np.round(wide * 128.0 + 128.0), 0, 255).astype(np.uint8)
+    return wide, u8
+
+
+def run_cli_wideband(device: str, flags: list[str], paths: dict,
+                     ingest: str, scan: bool = False) -> None:
+    """The CLI's `--wideband` on the two-station capture, in-process:
+    every station's tone (> 18 dB on each side), its RDS PI with --rds,
+    and with --scan both offsets found."""
+    from sdr_tpu_torch import cli
+    from sdr_tpu_torch.io.wav import read_wav
+    from sdr_tpu_torch.utils.compare import tone_snr_db
+    argv = [*flags, "--wideband", str(FS_WIDE), "--in", paths[ingest],
+            "--blocks-per-step", "4"]
+    argv += ["--scan"] if scan else ["--freqs=" + ",".join(
+        str(f) for f in WIDE_CLI_FREQS)]
+    if ingest == "u8":
+        argv.append("--wideband-u8")
+    cmd = " ".join(a for a in argv if not a.startswith(("--in", "/")))
+    with tempfile.TemporaryDirectory() as wav_dir:
+        argv += ["--wav-dir", wav_dir]
+        if device != "cuda":
+            argv += ["--device", device]
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        text = err.getvalue()
+        if rc != 0:
+            raise AssertionError(f"cli {cmd} exited {rc}:\n{text}")
+        freqs = list(WIDE_CLI_FREQS)
+        if scan:
+            m = re.search(r"scan found stations at (.*)", text)
+            found = [float(round(float(f.split()[0]) * 1e6))
+                     for f in (m.group(1).split(", ") if m else [])]
+            if sorted(found) != freqs:
+                raise AssertionError(f"cli {cmd}: scan found {found}")
+            freqs = found
+        msgs = []
+        for k, f in enumerate(freqs):
+            tone_f = WIDE_CLI_TONES[WIDE_CLI_FREQS.index(f)]
+            rate, pcm = read_wav(os.path.join(wav_dir, f"station{k}.wav"))
+            sides = pcm.reshape(len(pcm), -1).T.astype("f8")
+            snrs = [tone_snr_db(x, rate, tone_f, skip=rate // 4)
+                    for x in sides]
+            msg = f"{f / 1e6:+.2f} MHz {tone_f:.0f} Hz " + "/".join(
+                f"{v:.1f}" for v in snrs) + " dB"
+            ok = min(snrs) > 18.0
+            if "--rds" in flags:
+                pi = 0x2000 + WIDE_CLI_FREQS.index(f)
+                final = re.search(re.escape(f"  {f / 1e6:+.2f} MHz RDS "
+                                            "final: ")
+                                  + r"PI=(0x[0-9a-f]+) .*\((\d+) groups\)",
+                                  text)
+                ok = ok and final is not None and int(final.group(1),
+                                                      16) == pi
+                msg += (f", RDS PI={final.group(1)} ({final.group(2)} "
+                        "groups)" if final else ", RDS no sync")
+            if not ok:
+                raise AssertionError(f"cli {cmd}: {msg}\n{text}")
+            msgs.append(msg)
+        log(f"cli {cmd}: " + "; ".join(msgs)
+            + f"; {secs:.2f} s wall incl. set-up")
 
 
 def expected_samples(rx, n: int, blocks_per_step: int) -> int:
@@ -888,6 +1158,150 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     return ms, rate
 
 
+def wideband_stations_u8(device, pairs: int, amplitude: float = 0.025):
+    """The 64-station wideband stream (u8 interleaved, on the device):
+    four stereo + RDS FM basebands at 2.4 MS/s, upsampled to 9.6 MS/s once
+    (scipy), station s the baseband s % 4 delayed by 4099*s samples and
+    placed at WIDE_FREQS[s]."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+    from sdr_tpu_torch import tx
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.rds import tx as rds_tx
+    fs = float(MODES[0].rf_fs)
+    n = -(-pairs // 4) + 64
+    bases = []
+    for v in range(4):
+        bits = rds_tx.standard_group_stream(pi=0x3000 + v, n_groups=int(
+            n / fs * 1187.5 / 104) + 3)
+        m = tx.make_multiplex(
+            fs, n, left=tx.tone(fs, 700.0 + 300.0 * v, n),
+            right=tx.tone(fs, 2500.0 - 200.0 * v, n),
+            rds_baseband=rds_tx.bits_to_baseband(bits, fs)[:n], a_rds=0.1)
+        i, q = tx.fm_modulate(m, fs)
+        bases.append(sps.resample_poly(i + 1j * q, 4, 1)[:pairs])
+    base = torch.from_numpy(np.stack(bases).astype(np.complex64)).to(device)
+    t = torch.arange(pairs, dtype=torch.float64, device=device)
+    wide = torch.zeros(pairs, dtype=torch.complex64, device=device)
+    for s, f in enumerate(WIDE_FREQS):
+        ph = torch.remainder(2 * np.pi * f / FS_WIDE * t, 2 * np.pi)
+        osc = torch.polar(torch.ones_like(ph), ph).to(torch.complex64)
+        wide += torch.roll(base[s % 4], 4099 * s) * osc
+    wide = wide * amplitude
+    iq = torch.stack([wide.real, wide.imag], dim=-1).reshape(-1)
+    return torch.clamp(torch.round(iq * 128.0 + 128.0), 0, 255).to(
+        torch.uint8)
+
+
+def check_mfb_at_step(pl, blk, cstate, name: str, compute: str) -> None:
+    """B7 on one wideband step's block, as the step calls it (the flat
+    stream), against its plain version on the pre-phased layout: every
+    station within 2e-5 of max|plain|, the carried state bit-equal.  The
+    comparison's launch is taken back out of the path's count."""
+    import torch
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    from sdr_tpu_torch.ops.cuda.channelizer_kernel import call_cols_reference
+    launched = LAUNCHES["mfb"]
+    (i_k, q_k), s_k = pl(blk, cstate)
+    LAUNCHES["mfb"] = launched
+    (i_p, q_p), s_p = call_cols_reference(
+        pl, blk.reshape(-1, 2 * pl.decim).T, cstate)
+    err = max(max_err(i_k, i_p, 2e-5, False, f"{name} mfb I"),
+              max_err(q_k, q_p, 2e-5, False, f"{name} mfb Q"))
+    for key in s_p:
+        if not torch.equal(s_k[key], s_p[key]):
+            raise AssertionError(f"{name} mfb: carried {key} differs")
+    n_out = i_k.shape[1]
+    bound_ms, bound_by = roofline(*mfb_work(pl, n_out, pl.ingest, compute,
+                                            "f32"))
+    log(f"real size {name}: B7 {compute} at the step's shape (K={pl.k}, "
+        f"n_out={n_out}) max|err| {err:.3g} against its plain version; "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def run_real_size_wideband(wide_u8, device, name: str, compute: str,
+                           rx_kw: dict, steps: int = 5,
+                           stations_checked: int = 4,
+                           profile_n: int = 10) -> tuple:
+    """WidebandReceiver at the reference's wideband configuration (64
+    stations, 9.6 MS/s u8, blocks_per_step 16, BASELINE.md:219-229; the
+    CLI's engines: the channelizer kernel in `compute`, the unfused
+    receiver) with the input resident on the device: two steps checked,
+    then ms/step and wideband MS/s from CUDA events, and the step's
+    torch.profiler breakdown.  The --fast profiles (feedforward carriers)
+    hold stations 0-3 of every output to 45 dB against the same steps on
+    the CPU: a 4-station channelizer with those offsets (each bank row is
+    independent of the others) and the CPU receiver, the plain versions
+    on the same inputs.  The default profile (the scan loops, too slow on
+    the CPU at this length) is gated on finite outputs of every station;
+    phase 3g gates its decode.  Before the first step, B7 is held against
+    its plain version at the step's own shape on all 64 stations, from the
+    state that step starts from (2e-5 of max|plain|, carried state
+    bit-equal); that comparison's launch is not the path's and is not
+    counted."""
+    import torch
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.models.wideband import WidebandReceiver
+    from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+
+    def build(freqs, dev):
+        chan = WidebandChannelizer(FS_WIDE, 2.4e6, freqs, engine="pallas",
+                                   ingest="u8", compute_dtype=compute,
+                                   device=dev)
+        return WidebandReceiver(chan, Receiver(0, device=dev, **rx_kw))
+
+    wrx = build(WIDE_FREQS, device)
+    bw = wrx.block_wide(WIDE_BLOCKS_PER_STEP)
+    blocks = [wide_u8[b * bw:(b + 1) * bw] for b in range(len(wide_u8) // bw)]
+    if len(blocks) < 2:
+        raise AssertionError(f"{name}: the stream holds {len(blocks)} steps")
+    k = stations_checked
+    check_cpu = rx_kw.get("pll_impl") == "ff"
+    cwrx = build(WIDE_FREQS[:k], "cpu") if check_cpu else None
+    st = wrx.init_state()
+    cst = cwrx.init_state() if check_cpu else None
+    check_mfb_at_step(wrx.chan._pl, blocks[0], st[0], name, compute)
+    cpu_s = 0.0
+    for b, blk in enumerate(blocks[:2]):
+        st, out = wrx.step(st, blk)
+        for key, v in out.items():
+            if not bool(torch.isfinite(v).all()) or v.shape[0] != len(
+                    WIDE_FREQS):
+                raise AssertionError(f"{name} {key}: {tuple(v.shape)}")
+        if check_cpu:
+            t0 = time.perf_counter()
+            cst, cout = cwrx.step(cst, blk.cpu())
+            cpu_s += time.perf_counter() - t0
+            snrs = {key: snr_db(cout[key].double().numpy(),
+                                out[key][:k].double().cpu().numpy())
+                    for key in cout}
+            if not min(snrs.values()) >= 45.0:
+                raise AssertionError(f"{name} step {b}: card vs CPU {snrs}")
+            log(f"real size {name} step {b}: stations 0-{k - 1} agree with "
+                f"the CPU (" + ", ".join(f"{key} {v:.1f}" for key, v in
+                                         sorted(snrs.items())) + " dB)")
+        else:
+            log(f"real size {name} step {b}: every output finite on all "
+                f"{len(WIDE_FREQS)} stations")
+    state, feed = st, itertools.cycle(blocks)
+
+    def one_step():
+        nonlocal state
+        state, _ = wrx.step(state, next(feed))
+    ms = cuda_ms(one_step, steps)
+    rate = bw / 2 / (ms * 1e-3) / 1e6
+    log(f"real size {name}: {len(WIDE_FREQS)} stations from {bw // 2} "
+        f"wideband pairs/step, {ms:.3f} ms/step = {rate:.1f} wideband MS/s "
+        f"(mean of {steps} steps, CUDA events); the CPU check took "
+        f"{cpu_s:.1f} s")
+    state = profile_steps(wrx, state, blocks, ms, steps=profile_n,
+                          label=name)
+    del wrx, state, st, out, blocks
+    torch.cuda.empty_cache()
+    return ms, rate
+
+
 def run_loop_engines(device: str, seconds: float = 1.2) -> None:
     """Receiver.run on one station of the recipe's capture with the other
     loop engines: 'pallas' (the sequential kernel, polynomial detector),
@@ -985,6 +1399,7 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke.py runs on the GPU")
+    t_start = time.perf_counter()
     card = card_info()
     kind = torch.cuda.get_device_name(0)
     log(f"nvidia-smi: {card}")
@@ -1025,6 +1440,10 @@ def main() -> int:
     lkern = check_loop_kernels(sblocks, device)
     log("phase 2c: the IF bank's four streams and the carrier loops agree "
         "with their plain versions")
+    t0 = time.perf_counter()
+    wkern = check_channelizer(device)
+    log("phase 2d: the wideband channelizer agrees with its plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # each path runs with the counts at 0 and is read right after it; a
     # path lists the kernels it must launch and those it must not
@@ -1047,7 +1466,14 @@ def main() -> int:
                                          (*fused_ff, "pll")),
              "loop engines, one station": (("pll", "pll_chunked"),
                                            ("pll_chunked_multi",
-                                            *fused_ff))}
+                                            *fused_ff)),
+             "wideband": (("mfb",), ("frontend_demod", "frontend",
+                                     *fused_ff, "ifbank", "pll",
+                                     "pll_chunked", "pll_chunked_multi")),
+             "wideband default": (("mfb", "pll"),
+                                  ("frontend_demod", "frontend", *fused_ff,
+                                   "ifbank", "pll_chunked",
+                                   "pll_chunked_multi"))}
     launches = {}
 
     def counted(path, fn):
@@ -1101,6 +1527,39 @@ def main() -> int:
         run_loop_engines(device)
         log("phase 3f: the loop engines decode the tones and the RDS groups")
 
+    def wideband_path(cli_paths, wide_u8):
+        t0 = time.perf_counter()
+        run_cli_wideband(device, ["0", "2", "--rds", "--fast"], cli_paths,
+                         "f32")
+        run_cli_wideband(device, ["0", "1", "--fast"], cli_paths, "u8",
+                         scan=True)
+        log("phase 3g: CLI --wideband --fast (and --scan) decodes every "
+            f"station's tone and RDS PI ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        out = {"wideband_mono_fast": run_real_size_wideband(
+                   wide_u8, device, "wideband mono --fast", "bf16",
+                   WIDE_FAST),
+               "wideband_stereo_rds_fast": run_real_size_wideband(
+                   wide_u8, device, "wideband stereo+RDS --fast", "bf16",
+                   dict(WIDE_FAST, stereo=True, rds=True))}
+        log("phase 4e: 64-station --fast wideband steps agree with the CPU "
+            f"({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    def wideband_default_path(cli_paths, wide_u8):
+        t0 = time.perf_counter()
+        run_cli_wideband(device, ["0", "1", "--rds"], cli_paths, "u8")
+        run_cli_wideband(device, ["0", "2", "--rds"], cli_paths, "u8")
+        log("phase 3g: CLI --wideband (default profile) decodes every "
+            f"station's tone and RDS PI ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        out = run_real_size_wideband(
+            wide_u8, device, "wideband stereo+RDS default", "f32",
+            dict(WIDE_DEFAULT, stereo=True, rds=True), steps=3, profile_n=3)
+        log("phase 4e: 64-station default-profile wideband steps are "
+            f"finite ({time.perf_counter() - t0:.1f} s)")
+        return out
+
     rates = counted("mono", mono_path)
     del blocks
     rates["stereo_rds_int8"] = counted("stereo+RDS", stereo_path)
@@ -1114,6 +1573,31 @@ def main() -> int:
         "stereo+RDS ifbank joint",
         lambda: joint_path(IFBANK_JOINT_PROFILE, "stereo+RDS ifbank joint"))
     counted("loop engines, one station", loop_engines_path)
+    del sblocks
+    torch.cuda.empty_cache()
+    # the wideband inputs: the CLI's two-station capture, and two steps of
+    # the largest profile's 64-station stream
+    import numpy as np
+    bw = max(
+        2 * (Receiver(0, device=device, stereo=True, rds=True,
+                      **WIDE_FAST).block_size_u8() // 2) * 4,
+        2 * (Receiver(0, device=device, stereo=True, rds=True,
+                      **WIDE_DEFAULT).block_size_u8() // 2) * 4)
+    t0 = time.perf_counter()
+    wide_u8 = wideband_stations_u8(device,
+                                   2 * (bw // 2) * WIDE_BLOCKS_PER_STEP)
+    log(f"wideband streams synthesized in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_paths = {"f32": os.path.join(tmp, "wide.cf32"),
+                     "u8": os.path.join(tmp, "wide.u8")}
+        for arr, path in zip(wideband_cli_capture(), cli_paths.values()):
+            np.asarray(arr).tofile(path)
+        rates.update(counted("wideband",
+                             lambda: wideband_path(cli_paths, wide_u8)))
+        rates["wideband_stereo_rds_default"] = counted(
+            "wideband default",
+            lambda: wideband_default_path(cli_paths, wide_u8))
+    del wide_u8
     for path, (ran, skipped) in paths.items():
         log(f"launches on the {path} path: " + ", ".join(
             f"{k} {launches[path][k]}" for k in (*ran, *skipped)))
@@ -1125,29 +1609,42 @@ def main() -> int:
             if launches[path][k] != 0:
                 raise AssertionError(f"kernel {k} was launched on the "
                                      f"{path} path, which declines it")
-    log(f"IQ throughput on {card}: " + ", ".join(
-        f"{name} {r:.1f} MS/s ({ms:.3f} ms/step)"
-        for name, (ms, r) in rates.items()))
+    log(f"throughput on {card} (IQ MS/s of the stations; wideband MS/s of "
+        "the antenna stream for the wideband steps): " + ", ".join(
+            f"{name} {r:.1f} MS/s ({ms:.3f} ms/step)"
+            for name, (ms, r) in rates.items()))
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        extra = {}
-        if name in lkern:
-            # phase 2c's kernels: the lengths compared and timed
-            err, ms, plain_ms, n, plain_n = lkern[name]
-            extra = {"n": n, "plain_n": plain_n}
-        elif name in skern:
-            # the stereo + RDS path's engines: bf16 IF bank, bf16 streams
-            err, ms, plain_ms = skern[name]
+        extra, library_ms = {}, None
+        if name == "mfb":
+            # bench.py's channelizer check: u8 pre-phased, f32 compute/out
+            err, ms, plain_ms, library_ms, bound_ms, bound_by = wkern[
+                "u8/f32->f32"]
         else:
-            # the mono path's engine: int8 (--fast), fm stored at bf16 there
-            err, ms, plain_ms = kern[(name, "int8->bf16"
-                                      if name == "frontend_demod"
-                                      else "int8")]
+            if name in lkern:
+                # phase 2c's kernels: the lengths compared and timed
+                err, ms, plain_ms, n, plain_n = lkern[name]
+                extra = {"n": n, "plain_n": plain_n}
+            elif name in skern:
+                # the stereo + RDS path's engines: bf16 IF bank and streams
+                err, ms, plain_ms, *lib = skern[name]
+                library_ms = lib[0] if lib else None
+                n = sbs // 20
+            else:
+                # the mono path's engine: int8 (--fast), fm stored at bf16
+                err, ms, plain_ms = kern[(name, "int8->bf16"
+                                          if name == "frontend_demod"
+                                          else "int8")]
+                n = bs
+            bound_ms, bound_by = roofline(*kernel_work(name, STATIONS, n))
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[KERNEL_PATH[name]][name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        **extra})
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, **extra})
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the "
+        "first CUDA call")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -17,6 +17,12 @@ kernel launch per carrier and step on the card).  `--fast` selects the
 fused CUDA kernels (front end; with stereo and RDS also the IF bank, the
 carrier synthesis + mixers and the audio pair) and the feedforward
 carrier engine; `--exact-fast` the exact-integer front end.
+
+`--wideband FS --freqs=...` (or `--scan`) reads one wideband complex
+capture (f32, or u8 with `--wideband-u8`), channelizes the stations on
+the device (the CUDA channelizer kernel on the card, the plain mfb
+engine on --device cpu) and decodes them all, writing station<i>.wav to
+`--wav-dir`, as the reference's wideband mode does.
 """
 
 from __future__ import annotations
@@ -57,6 +63,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exact-integer front end (int8x2), f32 elsewhere")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
+    p.add_argument("--wav-dir", default=None,
+                   help="output directory for per-station WAVs "
+                        "(station<i>.wav)")
+    p.add_argument("--wideband", type=float, default=None, metavar="FS",
+                   help="treat --in as a float32 interleaved complex "
+                        "wideband capture at FS samples/s; channelize the "
+                        "stations given by --freqs on the device")
+    p.add_argument("--freqs", default=None,
+                   help="comma-separated station offsets in Hz for "
+                        "--wideband (e.g. -1500000,0,1800000)")
+    p.add_argument("--wideband-u8", action="store_true",
+                   help="the --wideband capture is interleaved u8 IQ "
+                        "((x-128)/128 decode on the device) instead of f32")
+    p.add_argument("--scan", action="store_true",
+                   help="with --wideband: detect the station offsets from "
+                        "the capture's spectrum instead of --freqs")
+    p.add_argument("--scan-snr", type=float, default=10.0,
+                   help="detection threshold above the noise floor (dB)")
+    p.add_argument("--max-stations", type=int, default=None,
+                   help="with --scan: keep only the N strongest stations")
     return p
 
 
@@ -75,6 +101,9 @@ def main(argv: list[str] | None = None) -> int:
               "available (use --device cpu to run on the CPU)",
               file=sys.stderr)
         return 1
+
+    if args.wideband:
+        return _run_wideband(args, cfg, stereo, rds, device)
 
     from sdr_tpu_torch.io import wav as wavio
     from sdr_tpu_torch.io.stream import (SyncBlockReader,
@@ -182,6 +211,119 @@ def main(argv: list[str] | None = None) -> int:
               f"PS={info.ps_name!r} RT={info.radio_text.rstrip()!r} "
               f"({info.groups_seen} groups)"
               if info.pi is not None else "RDS: no sync", file=sys.stderr)
+    return 0
+
+
+def _run_wideband(args, cfg, stereo: bool, rds: bool,
+                  device: torch.device) -> int:
+    """Channelize a wideband complex capture into K stations and decode
+    them all (models/wideband.py WidebandReceiver), streaming the file
+    block-wise so captures larger than RAM work (sdr_tpu/cli.py:260-371)."""
+    import os
+    from sdr_tpu_torch.io import wav as wavio
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.models.wideband import WidebandReceiver
+    from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+
+    if not (args.freqs or args.scan) or not args.wav_dir:
+        print("--wideband requires --freqs (or --scan) and --wav-dir",
+              file=sys.stderr)
+        return 1
+    fs_wide = args.wideband
+    dtype = np.dtype(np.uint8) if args.wideband_u8 else np.dtype("<f4")
+    with open(args.infile, "rb") as fin:
+
+        def read_scalars(count):
+            return np.frombuffer(fin.read(count * dtype.itemsize),
+                                 dtype=dtype)
+
+        if args.scan:
+            from sdr_tpu_torch.ops.spectrum import find_stations
+            # survey a ~0.1 s prefix (plenty for energy detection), then
+            # rewind so the decode stream includes it
+            n_scan = max(1 << 18, int(0.1 * fs_wide))
+            prefix = read_scalars(2 * n_scan)
+            fin.seek(0)
+            if args.wideband_u8:
+                pf = (prefix.astype(np.float32) - 128.0) / 128.0
+            else:
+                pf = prefix
+            freqs = find_stations(np.ascontiguousarray(pf[0::2]),
+                                  np.ascontiguousarray(pf[1::2]), fs_wide,
+                                  min_snr_db=args.scan_snr,
+                                  max_stations=args.max_stations,
+                                  device=device)
+            if not freqs:
+                print("scan found no stations", file=sys.stderr)
+                return 1
+            print("scan found stations at "
+                  + ", ".join(f"{f/1e6:+.2f} MHz" for f in freqs),
+                  file=sys.stderr)
+        else:
+            freqs = [float(f) for f in args.freqs.split(",") if f]
+        # the CUDA channelizer kernel on the card, the plain mfb engine on
+        # the CPU (the reference: its Pallas kernel on the TPU, mfb else)
+        chan = WidebandChannelizer(
+            fs_wide, cfg.rf_fs, freqs,
+            engine="pallas" if device.type == "cuda" else "mfb",
+            ingest="u8" if args.wideband_u8 else "f32",
+            compute_dtype="bf16" if args.fast else "f32", device=device)
+        rx = Receiver(args.mode, stereo=stereo, rds=rds,
+                      fused_frontend=False,
+                      pll_impl="ff" if args.fast else "auto", device=device)
+        wrx = WidebandReceiver(chan, rx)
+        print(f"Channelizing {len(freqs)} stations from {fs_wide/1e6:.1f} "
+              f"MS/s wideband ({dtype.name} stream)", file=sys.stderr)
+
+        def file_chunks():
+            # stream the capture: bounded read-ahead, never the whole file
+            chunk = wrx.block_wide(args.blocks_per_step)
+            while True:
+                data = read_scalars(chunk)
+                if len(data) == 0:
+                    return
+                yield data
+
+        mrds = None
+        if rds:
+            from sdr_tpu_torch.rds.streaming import MultiStreamingRds
+            mrds = MultiStreamingRds(cfg.rds_sps, len(freqs))
+        audio = []
+        for out, _state in wrx.stream(file_chunks(),
+                                      blocks_per_step=args.blocks_per_step,
+                                      scan_steps=4):
+            if stereo:
+                audio.append(np.stack([out["left"].float().cpu().numpy(),
+                                       out["right"].float().cpu().numpy()],
+                                      axis=-1))
+            else:
+                audio.append(out["mono"].float().cpu().numpy())
+            if mrds is not None and "rds_soft" in out:
+                # live per-station decode as the wideband capture streams
+                for i, _groups in mrds.push(
+                        out["rds_soft"].float().cpu().numpy()):
+                    info = mrds.info(i)
+                    print(f"  {freqs[i]/1e6:+.2f} MHz RDS: PI={info.pi:#06x} "
+                          f"PS={info.ps_name!r} ({info.groups_seen} groups)",
+                          file=sys.stderr)
+    if not audio:
+        print("capture shorter than one block", file=sys.stderr)
+        return 1
+    full = np.concatenate(audio, axis=1)
+    os.makedirs(args.wav_dir, exist_ok=True)
+    for i, f in enumerate(freqs):
+        pcm = np.clip(np.nan_to_num(full[i]) * 16384.0, -32768, 32767
+                      ).astype(np.int16)
+        dst = os.path.join(args.wav_dir, f"station{i}.wav")
+        wavio.write_wav(dst, cfg.audio_fs, pcm)
+        print(f"  {f/1e6:+.2f} MHz -> {dst}", file=sys.stderr)
+    if mrds is not None:
+        for i, f in enumerate(freqs):
+            info = mrds.info(i)
+            msg = (f"PI={info.pi:#06x} PS={info.ps_name!r} "
+                   f"({info.groups_seen} groups)"
+                   if info.pi is not None else "no sync")
+            print(f"  {f/1e6:+.2f} MHz RDS final: {msg}", file=sys.stderr)
     return 0
 
 

@@ -112,7 +112,7 @@ class Receiver:
                  compat_pll: bool = False,
                  deemphasis_us: float | None = None,
                  fused_synth: bool = True,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         cfg = get_mode(mode) if isinstance(mode, int) else mode
         if rds and cfg.rds_sps is None:
             raise ValueError(f"mode {cfg.mode} does not support RDS")

@@ -38,7 +38,7 @@ class PairDecimFIR:
     def __init__(self, coeff: np.ndarray, down: int, *,
                  compute_dtype: torch.dtype = torch.float32,
                  out_dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if len(coeff) - 1 > CTX:
             raise ValueError(f"{len(coeff)} taps exceed the {CTX}-sample "
                              "context")

@@ -83,7 +83,7 @@ class FusedFrontend:
     def __init__(self, coeff: np.ndarray, decim: int, *,
                  compute_dtype: str = "f32",
                  out_dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if compute_dtype not in ENGINES:
             raise ValueError(f"compute_dtype {compute_dtype!r} not in "
                              f"{sorted(ENGINES)}")

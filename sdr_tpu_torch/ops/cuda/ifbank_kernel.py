@@ -51,7 +51,7 @@ class FusedIFBank:
     def __init__(self, chan_coeff, pilot_coeff, rds_coeff, carr_coeff, *,
                  compute_dtype: torch.dtype = torch.float32,
                  out_dtype: torch.dtype | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         coeffs = [np.asarray(c, np.float64) for c in
                   (chan_coeff, pilot_coeff, rds_coeff, carr_coeff)]
         self.taps = max(len(c) for c in coeffs)

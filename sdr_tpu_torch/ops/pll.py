@@ -55,7 +55,7 @@ class PLLState(NamedTuple):
 
 
 def pll_init(batch_shape: tuple[int, ...] = (),
-             device: torch.device | str = "cpu") -> PLLState:
+             device: torch.device | str = "cuda") -> PLLState:
     """Initial state (integrator=0, phase=0, feedbackI=1, feedbackQ=0,
     trigOffset=0), as the reference's src/project.cpp:106-111."""
     z = torch.zeros(batch_shape, dtype=torch.float32, device=device)
@@ -117,7 +117,7 @@ def _ff_tables_cached(n, window, freq, fs, nco_scale, phase_adjust, device):
 
 def _ff_tables(n: int, window: int, freq: float, fs: float,
                nco_scale: float, phase_adjust: float,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = "cuda") -> dict:
     """Host-f64 carrier ramp tables, cast to float32 on `device`; shaped
     (n // window, window) with float32 0-d constants beside them.  Cached
     by their arguments (a step reuses its block length)."""

@@ -67,7 +67,7 @@ class PolyphaseResampler:
     def __init__(self, coeff: np.ndarray, up: int = 1, down: int = 1, *,
                  compute_dtype: torch.dtype = torch.float32,
                  store_dtype: torch.dtype | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if not (up == 1 or math.gcd(up, down) == 1):
             raise ValueError(f"U={up} and D={down} must be coprime")
         self.up = int(up)
@@ -127,7 +127,7 @@ class MultiFIR:
 
     def __init__(self, coeffs: list[np.ndarray], *,
                  compute_dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.taps = max(len(c) for c in coeffs)
         self.k = len(coeffs)
         self.state_len = self.taps - 1

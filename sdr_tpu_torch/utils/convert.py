@@ -6,7 +6,10 @@ device; `state_to_numpy` goes the other way.  Every leaf keeps its shape
 and dtype, bf16 leaves included (numpy holds those as ml_dtypes.bfloat16,
 which torch cannot wrap, so they cross as their 16-bit patterns).  The
 stereo and RDS states and their carrier (PLL) states cross too; a slot
-that is None stays None.
+that is None stays None.  `chan_state_from_numpy` / `chan_state_to_numpy`
+carry a WidebandChannelizer state (a dict of leaves, for every engine:
+the u8 tail of the pallas engine included), and `wideband_state_*` the
+(channelizer, receiver) state pair of WidebandReceiver.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def _convert(node, cls, leaf):
                  for f in cls._fields))
 
 
-def state_from_numpy(tree, device: torch.device | str = "cpu"
+def state_from_numpy(tree, device: torch.device | str = "cuda"
                      ) -> ReceiverState:
     """Reference ReceiverState (numpy leaves) -> the port's ReceiverState."""
     return _convert(tree, ReceiverState,
@@ -62,3 +65,26 @@ def state_to_numpy(state: ReceiverState) -> ReceiverState:
     ready for `jax.tree.map(jnp.asarray, ...)` on the reference's side
     once rebuilt as its types (field for field)."""
     return _convert(state, ReceiverState, _leaf_to_numpy)
+
+
+def chan_state_from_numpy(state: dict, device: torch.device | str = "cuda"
+                          ) -> dict[str, torch.Tensor]:
+    """Reference channelizer state (dict of numpy leaves) -> the port's."""
+    return {k: _leaf_to_torch(v, device) for k, v in state.items()}
+
+
+def chan_state_to_numpy(state: dict[str, torch.Tensor]) -> dict:
+    return {k: _leaf_to_numpy(v) for k, v in state.items()}
+
+
+def wideband_state_from_numpy(state, device: torch.device | str = "cuda"):
+    """Reference WidebandReceiver state (channelizer dict, ReceiverState)
+    with numpy leaves -> the port's pair."""
+    cstate, rstate = state
+    return (chan_state_from_numpy(cstate, device),
+            state_from_numpy(rstate, device))
+
+
+def wideband_state_to_numpy(state):
+    cstate, rstate = state
+    return chan_state_to_numpy(cstate), state_to_numpy(rstate)

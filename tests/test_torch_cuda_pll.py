@@ -136,8 +136,8 @@ def test_default_profile_receiver_card_vs_cpu(dev):
     gout, _ = Receiver(0, stereo=True, rds=True, device=dev).run(
         torch.from_numpy(cap), blocks_per_step=4)
     assert LAUNCHES["pll"] > before
-    wout, _ = Receiver(0, stereo=True, rds=True).run(torch.from_numpy(cap),
-                                                     blocks_per_step=4)
+    wout, _ = Receiver(0, stereo=True, rds=True, device="cpu").run(
+        torch.from_numpy(cap), blocks_per_step=4)
     for k in ("left", "right", "rds_soft"):
         g = gout[k].double().cpu().numpy()
         w = wout[k].double().numpy()

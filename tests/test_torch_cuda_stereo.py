@@ -109,7 +109,7 @@ def test_ffmix_matches_plain(dev, dtype):
 def test_audio_pair_matches_plain(dev, compute, down):
     cfg = MODES[0]
     coeff = firdes.lowpass(cfg.if_fs, cfg.audio_fc, cfg.audio_taps, 1)
-    pair = PairDecimFIR(coeff, down, compute_dtype=compute)
+    pair = PairDecimFIR(coeff, down, compute_dtype=compute, device="cpu")
     rng = np.random.default_rng(2)
     n = down * 600
     xa = torch.from_numpy(rng.normal(0, 1, (2, 3, n)).astype(np.float32))

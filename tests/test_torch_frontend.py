@@ -47,7 +47,7 @@ def _pair(engine, out_dtype=None):
                            compute_dtype=JAX_DT[engine],
                            out_dtype=jnp.bfloat16 if out_dtype else None)
     tfe = FusedFrontend(coeff, 10, compute_dtype=engine,
-                        out_dtype=out_dtype or torch.float32)
+                        out_dtype=out_dtype or torch.float32, device="cpu")
     return jfe, tfe
 
 
@@ -149,7 +149,7 @@ def test_quantized_taps_are_the_reference_band(engine):
 def test_frontend_cpu_dispatch_and_state():
     """A CPU tensor goes to the plain version; the state is the reference's
     u8 tail of 128 filled with 128."""
-    tfe = FusedFrontend(_coeff(), 10, compute_dtype="int8")
+    tfe = FusedFrontend(_coeff(), 10, compute_dtype="int8", device="cpu")
     tail = tfe.init_state((2,))
     assert tail.dtype == torch.uint8 and tuple(tail.shape) == (2, 128)
     assert bool((tail == 128).all())
@@ -160,4 +160,4 @@ def test_frontend_cpu_dispatch_and_state():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
-        FusedFrontend(_coeff(), 10, compute_dtype="fp8")
+        FusedFrontend(_coeff(), 10, compute_dtype="fp8", device="cpu")

@@ -146,7 +146,7 @@ def test_streaming_rds_decoder_copy_equal(polarity, noise):
 
 def test_port_imports_no_jax():
     """A fresh interpreter in which jax and sdr_tpu cannot be imported
-    loads the port's package, receiver, CUDA wrapper and CLI."""
+    loads the port's package, receivers, CUDA wrappers and CLI."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -164,10 +164,17 @@ def test_port_imports_no_jax():
         "import sdr_tpu_torch.rds, sdr_tpu_torch.rds.streaming\n"
         "import sdr_tpu_torch.rds.tx, sdr_tpu_torch.rds.correct\n"
         "import sdr_tpu_torch.tx, sdr_tpu_torch.utils.compare\n"
+        "import sdr_tpu_torch.ops.cuda.channelizer_kernel\n"
+        "import sdr_tpu_torch.ops.spectrum\n"
         "from sdr_tpu_torch.models.receiver import Receiver\n"
+        "from sdr_tpu_torch.models.wideband import WidebandReceiver\n"
+        "from sdr_tpu_torch.ops.channelizer import WidebandChannelizer\n"
         "Receiver(0, stereo=True, rds=True, fused_frontend='int8',\n"
         "         pll_impl='ff', conv_dtype='bf16', conv_engine='tiled',\n"
-        "         fused_ifbank='bf16').init_state((2,))\n"
+        "         fused_ifbank='bf16', device='cpu').init_state((2,))\n"
+        "WidebandReceiver(WidebandChannelizer(\n"
+        "    9.6e6, 2.4e6, [0.0], engine='pallas', device='cpu'),\n"
+        "    Receiver(0, device='cpu')).init_state()\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'sdr_tpu']\n"
         "print('ok')\n")

@@ -30,7 +30,8 @@ def test_ifbank_streams_match_reference(fm_dtype, compute):
     jbank = jifbank.FusedIFBank(*bank_coeffs(), compute_dtype=jcomp,
                                 out_dtype=jnp.bfloat16 if bf else None)
     tbank = ifbank_kernel.FusedIFBank(*bank_coeffs(), compute_dtype=tcomp,
-                                      out_dtype=BF16 if bf else None)
+                                      out_dtype=BF16 if bf else None,
+                                      device="cpu")
     assert ifbank_kernel.OUT_TILE == jbank.out_tile
     blocks = fm_blocks()
     jtail = jbank.init_state((3,))
@@ -55,8 +56,9 @@ def test_ifbank_streams_share_the_mix_banks_filters():
     bit."""
     kw = dict(window=256, pilot_freq=19e3, rds_carrier_freq=114e3,
               fs=240e3, compute_dtype=BF16)
-    mix = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), **kw)
-    four = ifbank_kernel.FusedIFBank(*bank_coeffs(), compute_dtype=BF16)
+    mix = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), **kw, device="cpu")
+    four = ifbank_kernel.FusedIFBank(*bank_coeffs(), compute_dtype=BF16,
+                                     device="cpu")
     fm = torch.from_numpy(fm_blocks()[:, 0])
     tail = four.init_state((3,))
     a, b = mix.mix_call(fm, tail), four(fm, tail)
@@ -65,6 +67,6 @@ def test_ifbank_streams_share_the_mix_banks_filters():
 
 
 def test_ifbank_refuses_a_partial_tile():
-    bank = ifbank_kernel.FusedIFBank(*bank_coeffs())
+    bank = ifbank_kernel.FusedIFBank(*bank_coeffs(), device="cpu")
     with pytest.raises(ValueError, match="tile"):
         bank(torch.zeros(2, 768), bank.init_state((2,)))

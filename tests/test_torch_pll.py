@@ -49,7 +49,7 @@ def test_pll_feedforward_matches_reference(freq, scale, adj, n):
     """n = 1000 takes the window-clamping quirk: the window shrinks to 250,
     the largest divisor of n below 256."""
     x = tone(freq, 3 * n, seed=int(freq) + n)
-    tst, jst = pll.pll_init((2,)), jpll.pll_init((2,))
+    tst, jst = pll.pll_init((2,), device="cpu"), jpll.pll_init((2,))
     kw = dict(freq=freq, fs=FS, nco_scale=scale, phase_adjust=adj,
               window=256)
     for b in range(3):
@@ -68,7 +68,7 @@ def test_estimators_from_sums_match_reference(freq, scale, adj):
     x = tone(freq, 3 * n, seed=7)
     tabs = jpll._ff_tables(n, w, freq, FS, scale, adj)
     cos_r, sin_r = np.asarray(tabs["cos_ramp"]), np.asarray(tabs["sin_ramp"])
-    sts = {k: (pll.pll_init((2,)), jpll.pll_init((2,)))
+    sts = {k: (pll.pll_init((2,), device="cpu"), jpll.pll_init((2,)))
            for k in ("params", "f32", "bf16")}
     for b in range(3):
         x2 = x[:, b * n:(b + 1) * n].reshape(2, n // w, w)
@@ -107,7 +107,7 @@ def test_pll_feedforward_multi_matches_reference():
     n = 1536
     params = ((19_000.0, FS, 2.0, 0.2), (114_000.0, FS, 0.5, 0.0))
     xs = [tone(p[0], 3 * n, seed=i) for i, p in enumerate(params)]
-    tsts = (pll.pll_init((2,)), pll.pll_init((2,)))
+    tsts = (pll.pll_init((2,), device="cpu"), pll.pll_init((2,), device="cpu"))
     jsts = (jpll.pll_init((2,)), jpll.pll_init((2,)))
     for b in range(3):
         blk = [x[:, b * n:(b + 1) * n] for x in xs]
@@ -125,7 +125,7 @@ def test_pll_feedforward_multi_matches_reference():
 @pytest.mark.parametrize("n,w", [(2048, 256), (76800, 256), (1000, 250)])
 def test_ff_tables_bit_equal(freq, scale, adj, n, w):
     j = jpll._ff_tables(n, w, freq, FS, scale, adj)
-    t = pll._ff_tables(n, w, freq, FS, scale, adj)
+    t = pll._ff_tables(n, w, freq, FS, scale, adj, device="cpu")
     assert set(t) == set(j)
     for k in j:
         assert t[k].dtype == torch.float32
@@ -139,8 +139,8 @@ def test_multifir_matches_reference(dtype):
               firdes.bandpass(FS, 54e3, 60e3, 41)]
     tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
-    jf, tf = JMultiFIR(coeffs, compute_dtype=jdt), MultiFIR(coeffs,
-                                                           compute_dtype=tdt)
+    jf, tf = JMultiFIR(coeffs, compute_dtype=jdt), MultiFIR(
+        coeffs, compute_dtype=tdt, device="cpu")
     assert tf.state_len == jf.state_len == 50
     np.testing.assert_array_equal(tf._weight.numpy(),
                                   np.asarray(jf._rhs.astype(jdt), np.float32))

@@ -60,8 +60,8 @@ def test_pll_pallas_plain_matches_reference(batched):
     kw = dict(freq=19e3, fs=FS, nco_scale=2.0, phase_adjust=0.3)
     jout, jst = jkernel.pll_pallas(jnp.asarray(x), jpll.pll_init(lead),
                                    chunk=1000, interpret=True, **kw)
-    tout, tst = tkernel.pll_pallas(torch.from_numpy(x), tpll.pll_init(lead),
-                                   **kw)
+    tout, tst = tkernel.pll_pallas(torch.from_numpy(x),
+                                   tpll.pll_init(lead, device="cpu"), **kw)
     assert_loop_close(tout, tst, jout, jst, 2 * np.pi)
 
 
@@ -72,8 +72,8 @@ def test_pll_pallas_ignores_the_counter_and_lag_off():
     kw = dict(freq=19e3, fs=FS, nco_scale=2.0, lag_correction=False)
     jout, jst = jkernel.pll_pallas(jnp.asarray(x), jpll.pll_init((2,)),
                                    interpret=True, **kw)
-    tout, tst = tkernel.pll_pallas(torch.from_numpy(x), tpll.pll_init((2,)),
-                                   **kw)
+    tout, tst = tkernel.pll_pallas(torch.from_numpy(x),
+                                   tpll.pll_init((2,), device="cpu"), **kw)
     assert_loop_close(tout, tst, jout, jst, 2 * np.pi)
 
 
@@ -90,7 +90,8 @@ def test_pll_pallas_chunked_plain_matches_reference(chunk, n):
     jout, jst = jkernel.pll_pallas_chunked(
         jnp.asarray(x), jpll.pll_init((2,)), interpret=True, **kw)
     tout, tst = tkernel.pll_pallas_chunked(torch.from_numpy(x),
-                                           tpll.pll_init((2,)), **kw)
+                                           tpll.pll_init((2,), device="cpu"),
+                                           **kw)
     assert_loop_close(tout, tst, jout, jst, 2 * np.pi)
 
 
@@ -104,7 +105,8 @@ def test_pll_pallas_chunked_multi_plain_matches_reference():
     carrier = tones(2, n, seed=22, freqs=(RDS_FREQ,))
     params = ((19e3, FS, 2.0, 0.25, 0.01), (RDS_FREQ, FS, 0.5, 0.0, 0.003))
     jst = (jpll.pll_init((3,)), jpll.pll_init((2,)))
-    tst = (tpll.pll_init((3,)), tpll.pll_init((2,)))
+    tst = (tpll.pll_init((3,), device="cpu"),
+           tpll.pll_init((2,), device="cpu"))
     jouts, jnew = jkernel.pll_pallas_chunked_multi(
         (jnp.asarray(pilot), jnp.asarray(carrier)), jst, params=params,
         chunk=32, interpret=True)
@@ -121,7 +123,7 @@ def test_chunked_multi_equals_its_instances():
     pilot = torch.from_numpy(tones(2, 1600, seed=31))
     carrier = torch.from_numpy(tones(2, 1600, seed=32, freqs=(RDS_FREQ,)))
     params = ((19e3, FS, 2.0, 0.0, 0.01), (RDS_FREQ, FS, 0.5, 0.0, 0.003))
-    st = tpll.pll_init((2,))
+    st = tpll.pll_init((2,), device="cpu")
     outs, news = tkernel.pll_pallas_chunked_multi(
         (pilot, carrier), (st, st), params=params, chunk=16)
     for x, p, out, new in zip((pilot, carrier), params, outs, news):
@@ -136,10 +138,10 @@ def test_chunked_multi_equals_its_instances():
 def test_loop_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):
         tkernel.pll_chunked_loop(
-            (torch.zeros(2, 100),), (tpll.pll_init((2,)),),
+            (torch.zeros(2, 100),), (tpll.pll_init((2,), device="cpu"),),
             params=((19e3, FS, 2.0, 0.0, 0.01),), chunk=16)
     with pytest.raises(ValueError):
         tkernel.pll_chunked_loop((torch.zeros(2, 64), torch.zeros(2, 32)),
-                                 (tpll.pll_init((2,)),) * 2,
+                                 (tpll.pll_init((2,), device="cpu"),) * 2,
                                  params=((19e3, FS, 2.0, 0.0, 0.01),) * 2,
                                  chunk=16)

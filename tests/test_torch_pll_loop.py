@@ -71,7 +71,8 @@ def test_pll_matches_reference(wrap, lag, batched):
     kw = dict(freq=19e3, fs=FS, nco_scale=2.0, phase_adjust=0.2,
               wrap_phase=wrap, lag_correction=lag)
     jout, jst = jpll.pll(jnp.asarray(x), jpll.pll_init(lead), **kw)
-    tout, tst = tpll.pll(torch.from_numpy(x), tpll.pll_init(lead), **kw)
+    tout, tst = tpll.pll(torch.from_numpy(x),
+                         tpll.pll_init(lead, device="cpu"), **kw)
     assert_loop_close(tout, tst, jout, jst, 2 * np.pi)
 
 
@@ -99,14 +100,15 @@ def test_pll_chunked_matches_reference(chunk, scale, freq):
     kw = dict(freq=freq, fs=FS, nco_scale=scale, phase_adjust=0.1,
               norm_bandwidth=0.01 if scale == 2.0 else 0.003, chunk=chunk)
     jout, jst = jpll.pll_chunked(jnp.asarray(x), jpll.pll_init((3,)), **kw)
-    tout, tst = tpll.pll_chunked(torch.from_numpy(x), tpll.pll_init((3,)),
-                                 **kw)
+    tout, tst = tpll.pll_chunked(torch.from_numpy(x),
+                                 tpll.pll_init((3,), device="cpu"), **kw)
     assert_loop_close(tout, tst, jout, jst, 2 * np.pi / min(scale, 1.0))
 
 
 def test_pll_chunked_refuses_a_partial_chunk():
     with pytest.raises(ValueError, match="chunk"):
-        tpll.pll_chunked(torch.zeros(2, 1000), tpll.pll_init((2,)),
+        tpll.pll_chunked(torch.zeros(2, 1000),
+                         tpll.pll_init((2,), device="cpu"),
                          freq=19e3, fs=FS, chunk=16)
 
 
@@ -120,8 +122,8 @@ def test_two_blocks_continue_one(engine):
         fn = lambda v, s: tpll.pll_chunked(v, s, chunk=16, **kw)
     else:
         fn = lambda v, s: tpll.pll(v, s, wrap_phase=engine == "scan", **kw)
-    full, fst = fn(x, tpll.pll_init((2,)))
-    a, st = fn(x[:, :1200], tpll.pll_init((2,)))
+    full, fst = fn(x, tpll.pll_init((2,), device="cpu"))
+    a, st = fn(x[:, :1200], tpll.pll_init((2,), device="cpu"))
     b, st = fn(x[:, 1200:], st)
     torch.testing.assert_close(torch.cat([a, b], -1), full, rtol=0, atol=0)
     for u, v in zip(st, fst):

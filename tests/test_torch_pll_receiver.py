@@ -65,12 +65,12 @@ def test_resume_from_reference_state_mid_stream():
     through state_from_numpy, the second half in the port: the output
     equals a whole sdr_tpu run (mono within 1e-5 of max, the carrier
     outputs at 45 dB)."""
-    jrx, trx = JaxReceiver(0, **DEFAULT), Receiver(0, **DEFAULT)
+    jrx, trx = JaxReceiver(0, **DEFAULT), Receiver(0, **DEFAULT, device="cpu")
     cap = capture(0, 0.3)
     whole, _ = jax_run(jrx, cap, 2)
     half = 3 * jrx.block_size_u8(2)
     a, jst = jax_run(jrx, cap[:half], 2)
-    st = state_from_numpy(jax.tree.map(np.asarray, jst))
+    st = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     for t, j in zip(leaves(st.stereo.pll) + leaves(st.rds.pll),
                     jax.tree.leaves(jst.stereo.pll)
                     + jax.tree.leaves(jst.rds.pll)):

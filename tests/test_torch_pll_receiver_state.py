@@ -18,7 +18,7 @@ def test_split_invariance_default_profile(rng):
     """Random aligned step sizes give one run's output (45 dB: a block cut
     elsewhere may sum a float32 conv in another order, and the loops
     carry that difference through their feedback)."""
-    rx = Receiver(0, **DEFAULT)
+    rx = Receiver(0, **DEFAULT, device="cpu")
     cap = capture(0, 0.3)
     align = rx.block_align_u8()
     n = (len(cap) // align) * align
@@ -43,7 +43,7 @@ def test_loop_profiles_keep_state_dtypes(profile):
     """A step returns a state with init_state's dtypes and shapes, and
     both equal the reference's init_state, leaf for leaf."""
     kw = LOOP_PROFILES[profile]
-    rx = Receiver(0, **kw)
+    rx = Receiver(0, **kw, device="cpu")
     st0 = rx.init_state((2,))
     jl = jax.tree.leaves(JaxReceiver(0, **kw).init_state((2,)))
     assert len(leaves(st0)) == len(jl)

@@ -61,7 +61,7 @@ def assert_close(got, want, bf16, rel, scale=0.0):
 def test_receiver_run_matches_reference(mode, profile):
     cap = capture(mode)
     kw = dict(emit_rssi=True, emit_if=True, **kwargs(profile))
-    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw)
+    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw, device="cpu")
     jout, jst = jrx.run(cap, blocks_per_step=2)
     tout, tst = trx.run(cap, blocks_per_step=2)
     # arctan: atan2 ulps and XLA's cumsum order move the unwrapped phase
@@ -111,7 +111,8 @@ def test_step_iq_matches_reference():
     ph = np.cumsum(rng.normal(0, 0.3, (2, 2 * 12800)), axis=-1)
     i_raw = np.cos(ph).astype(np.float32)
     q_raw = np.sin(ph).astype(np.float32)
-    jrx, trx = JaxReceiver(0, emit_if=True), Receiver(0, emit_if=True)
+    jrx = JaxReceiver(0, emit_if=True)
+    trx = Receiver(0, emit_if=True, device="cpu")
     jst, tst = jrx.init_state((2,)), trx.init_state((2,))
     for sl in (slice(0, 12800), slice(12800, 25600)):
         jst, jout = jrx.step_iq(jst, i_raw[:, sl], q_raw[:, sl])

@@ -26,7 +26,7 @@ from test_torch_receiver import PROFILES, assert_close, capture
 def test_block_geometry_and_weights_match_reference(mode, kw):
     """Same block geometry, and the same filter coefficients (the port
     designs them with its own firdes copy)."""
-    j, t = JaxReceiver(mode, **kw), Receiver(mode, **kw)
+    j, t = JaxReceiver(mode, **kw), Receiver(mode, **kw, device="cpu")
     assert t.block_align_u8() == j.block_align_u8()
     for bps in (1, 3, 50):
         assert t.block_size_u8(bps) == j.block_size_u8(bps)
@@ -44,7 +44,7 @@ def test_block_geometry_and_weights_match_reference(mode, kw):
 def test_receiver_split_invariant(mode, profile):
     """Two runs over the halves of a capture (state carried) give the
     whole run's output."""
-    rx = Receiver(mode, emit_rssi=True, **PROFILES[profile])
+    rx = Receiver(mode, emit_rssi=True, **PROFILES[profile], device="cpu")
     cap = capture(mode)
     whole, st_whole = rx.run(cap, blocks_per_step=2)
     half = (len(cap) // 2 // rx.block_align_u8()) * rx.block_align_u8()
@@ -68,12 +68,12 @@ def test_state_carried_over_from_reference(mode, profile):
     """First half in sdr_tpu, state_from_numpy, second half in the port:
     the output equals a whole sdr_tpu run."""
     kw = PROFILES[profile]
-    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw)
+    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw, device="cpu")
     cap = capture(mode)
     whole, _ = jrx.run(cap, blocks_per_step=2)
     half = (len(cap) // 2 // jrx.block_align_u8()) * jrx.block_align_u8()
     a, jst = jrx.run(cap[:half], blocks_per_step=2)
-    st = state_from_numpy(jax.tree.map(np.asarray, jst))
+    st = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     for t, j in zip(list(st.front) + list(st.mono), jax.tree.leaves(jst)):
         assert tuple(t.shape) == j.shape
         assert str(t.dtype).removeprefix("torch.") == str(j.dtype)
@@ -94,10 +94,10 @@ def test_state_carried_over_from_reference(mode, profile):
 def test_state_numpy_round_trip(profile):
     """state_to_numpy gives what the reference's step takes, and converts
     back to the same tensors."""
-    rx = Receiver(0, **PROFILES[profile])
+    rx = Receiver(0, **PROFILES[profile], device="cpu")
     _, st = rx.run(capture(0, 0.05))
     np_state = state_to_numpy(st)
-    back = state_from_numpy(np_state)
+    back = state_from_numpy(np_state, device="cpu")
     for x, y in zip(list(st.front) + list(st.mono),
                     list(back.front) + list(back.mono)):
         assert x.dtype == y.dtype and torch.equal(x, y)
@@ -112,7 +112,7 @@ def test_state_numpy_round_trip(profile):
                                 dict(deemphasis_us=75.0)])
 def test_not_yet_ported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Receiver(0, **kw)
+        Receiver(0, **kw, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(stereo=True), dict(rds=True)],
@@ -120,7 +120,7 @@ def test_not_yet_ported_options_raise(kw):
 def test_carrier_loop_defaults_match_reference_geometry(kw):
     """Stereo and RDS on the default carrier engine (the scan loops)
     construct with the reference's block geometry and loop settings."""
-    j, t = JaxReceiver(0, **kw), Receiver(0, **kw)
+    j, t = JaxReceiver(0, **kw), Receiver(0, **kw, device="cpu")
     assert t.pll_impl == j.pll_impl == "scan"
     assert t.block_align_u8() == j.block_align_u8()
     for bps in (1, 3, 50):

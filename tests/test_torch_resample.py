@@ -39,7 +39,7 @@ def _blocks(down, seed):
 @pytest.mark.parametrize("geom", GEOMETRIES, ids=IDS)
 def test_resampler_f32_matches_both_engines(geom):
     _, coeff, up, down = geom
-    port = PolyphaseResampler(coeff, up, down)
+    port = PolyphaseResampler(coeff, up, down, device="cpu")
     for ref in (JaxResampler(coeff, up, down), JaxTiled(coeff, up, down)):
         assert port.state_len == ref.state_len
         jt, tt = ref.init_state((2,)), port.init_state((2,))
@@ -60,7 +60,7 @@ def test_resampler_bf16_tiled_profile(geom):
     _, coeff, up, down = geom
     ref = JaxTiled(coeff, up, down, compute_dtype=jnp.bfloat16)
     port = PolyphaseResampler(coeff, up, down, compute_dtype=torch.bfloat16,
-                              store_dtype=torch.bfloat16)
+                              store_dtype=torch.bfloat16, device="cpu")
     jt, tt = ref.init_state((2,)), port.init_state((2,))
     assert tt.dtype == torch.bfloat16 and jt.dtype == jnp.bfloat16
     for x in _blocks(down, seed=7 * up + down):
@@ -75,8 +75,9 @@ def test_resampler_bf16_tiled_profile(geom):
 
 
 def test_resampler_rejects_bad_block():
-    port = PolyphaseResampler(firdes.lowpass(240e3, 16e3, 51, 1), 1, 5)
+    port = PolyphaseResampler(firdes.lowpass(240e3, 16e3, 51, 1), 1, 5,
+                              device="cpu")
     with pytest.raises(ValueError):
         port(torch.zeros(1, 12), port.init_state((1,)))
     with pytest.raises(ValueError):
-        PolyphaseResampler(np.ones(5), 4, 2)
+        PolyphaseResampler(np.ones(5), 4, 2, device="cpu")

@@ -73,7 +73,8 @@ def test_ifbank_mix_matches_reference(fm_dtype, compute):
                                    out_dtype=jnp.bfloat16 if bf else None,
                                    **kw)
     tbank = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), compute_dtype=tcomp,
-                                         out_dtype=BF16 if bf else None, **kw)
+                                         out_dtype=BF16 if bf else None, **kw,
+                                         device="cpu")
     assert ifbank_kernel.OUT_TILE == jbank.out_tile
     blocks = fm_blocks()
     jtail = jbank.init_state((3,))
@@ -100,7 +101,7 @@ def test_ifbank_ramp_tables_bit_equal():
               rds_carrier_freq=float(CFG.rds_carrier_freq),
               fs=float(CFG.if_fs))
     jbank = jifbank.FusedIFBankMix(*bank_coeffs(), **kw)
-    tbank = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), **kw)
+    tbank = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), **kw, device="cpu")
     for n in (1024, 76800):
         for (jc, js), (tc, ts) in zip(jbank._ramps(n), tbank.ramps(n, "cpu")):
             np.testing.assert_array_equal(tc.numpy(), jc[0])
@@ -149,7 +150,7 @@ def test_audio_pair_matches_reference(compute):
     jcomp = jnp.bfloat16 if compute == "bf16" else jnp.float32
     jp = jaudio.PairDecimFIR(coeff, CFG.audio_decim, compute_dtype=jcomp)
     tp = audio_kernel.PairDecimFIR(coeff, CFG.audio_decim,
-                                   compute_dtype=tcomp)
+                                   compute_dtype=tcomp, device="cpu")
     rng = np.random.default_rng(4)
     n = 1280
     xa = rng.normal(0, 0.5, (3, 2, n)).astype(np.float32)
@@ -172,12 +173,13 @@ def test_audio_pair_matches_reference(compute):
 
 def test_wrappers_refuse_what_they_do_not_take():
     coeff = firdes.lowpass(CFG.if_fs, CFG.audio_fc, CFG.audio_taps, 1)
-    pair = audio_kernel.PairDecimFIR(coeff, 5)
+    pair = audio_kernel.PairDecimFIR(coeff, 5, device="cpu")
     with pytest.raises(ValueError):
         pair(torch.zeros(2, 1003), torch.zeros(2, 1003), pair.init_state((2,)),
              pair.init_state((2,)))
     bank = ifbank_kernel.FusedIFBankMix(*bank_coeffs(), pilot_freq=19e3,
-                                        rds_carrier_freq=114e3, fs=240e3)
+                                        rds_carrier_freq=114e3, fs=240e3,
+                                        device="cpu")
     with pytest.raises(ValueError):
         bank.mix_call(torch.zeros(2, 1000), bank.init_state((2,)))
     with pytest.raises(ValueError):

@@ -120,7 +120,7 @@ def check_against_reference(mode, kw, blocks_per_step=2, seconds=0.3):
     keep their bound."""
     cap = capture(mode, seconds, rds=kw.get("rds", False))
     kw = dict(emit_if=True, **kw)
-    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw)
+    jrx, trx = JaxReceiver(mode, **kw), Receiver(mode, **kw, device="cpu")
     assert trx.block_align_u8() == jrx.block_align_u8()
     assert trx.block_size_u8(blocks_per_step) == jrx.block_size_u8(
         blocks_per_step)

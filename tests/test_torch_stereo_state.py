@@ -45,7 +45,7 @@ def test_split_invariance(profile, rng):
     block cut elsewhere may sum a float32 conv in another order, which can
     flip a bf16 rounding: 45 dB, the reference's bar for its own chains."""
     kw = DTYPE_PROFILES[profile]
-    rx = Receiver(0, **kw)
+    rx = Receiver(0, **kw, device="cpu")
     cap = capture(0, 0.3, rds=kw.get("rds", False))
     align = rx.block_align_u8()
     n = (len(cap) // align) * align
@@ -71,13 +71,13 @@ def test_state_carried_over_from_reference(kw):
     """The first half in sdr_tpu, state_from_numpy, the second half in the
     port: the output equals a whole sdr_tpu run (45 dB on a bf16 chain,
     1e-5 of max element-wise on the float32 one)."""
-    jrx, trx = JaxReceiver(0, **kw), Receiver(0, **kw)
+    jrx, trx = JaxReceiver(0, **kw), Receiver(0, **kw, device="cpu")
     cap = capture(0, 0.3)
     whole, _ = jax_run(jrx, cap, 2)
     bs = jrx.block_size_u8(2)
     half = 2 * bs
     a, jst = jax_run(jrx, cap[:half], 2)
-    st = state_from_numpy(jax.tree.map(np.asarray, jst))
+    st = state_from_numpy(jax.tree.map(np.asarray, jst), device="cpu")
     for t, j in zip(leaves(st), jax.tree.leaves(jst)):
         assert tuple(t.shape) == j.shape
         assert str(t.dtype).removeprefix("torch.") == str(j.dtype)
@@ -95,7 +95,7 @@ def test_state_carried_over_from_reference(kw):
 def test_step_keeps_state_dtypes(profile):
     """A step returns a state with init_state's dtypes and shapes, in every
     engine set (mixed ones too: int8x2 front end with a bf16 IF bank)."""
-    rx = Receiver(0, **DTYPE_PROFILES[profile])
+    rx = Receiver(0, **DTYPE_PROFILES[profile], device="cpu")
     st0 = rx.init_state((2,))
     blk = np.stack([capture(0)[:rx.block_size_u8()]] * 2)
     st1, _ = rx.step(st0, torch.from_numpy(blk))
@@ -115,7 +115,7 @@ def test_state_numpy_round_trip(kw):
     cap = capture(0)
     _, jst = jax_run(jrx, cap[:2 * jrx.block_size_u8()], 1)
     np_state = jax.tree.map(np.asarray, jst)
-    back = state_to_numpy(state_from_numpy(np_state))
+    back = state_to_numpy(state_from_numpy(np_state, device="cpu"))
     jl, bl = jax.tree.leaves(np_state), jax.tree.leaves(back)
     assert len(jl) == len(bl) > 20
     for j, b in zip(jl, bl):
@@ -136,7 +136,7 @@ def test_state_numpy_round_trip(kw):
     dict(stereo=True, pll_impl="ff", filter_engine="fft")])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Receiver(0, **kw)
+        Receiver(0, **kw, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -147,7 +147,7 @@ def test_later_slices_raise(kw):
 def test_carrier_loop_profiles_construct_and_step(kw):
     """The profiles the carrier loops brought: each constructs and takes
     one step whose outputs are finite and of the reference's lengths."""
-    rx = Receiver(0, **kw)
+    rx = Receiver(0, **kw, device="cpu")
     blk = capture(0, rds=kw.get("rds", False))[:rx.block_size_u8()]
     _, out = rx.step(rx.init_state(), torch.from_numpy(blk))
     n_audio = len(blk) // (2 * rx.cfg.rf_decim) // rx.cfg.audio_decim
