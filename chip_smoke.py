@@ -5,11 +5,14 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from csrc/, holds each kernel against its plain
-PyTorch version on the card (phases 2, 2b, 2c and 2d: the front end, the
-feedforward stereo + RDS kernels, the IF bank's four-stream variant and
-the carrier loops, then the wideband channelizer), drives the receivers
-through their entry points, and checks the audio and the RDS decode.
+It builds the CUDA kernels from csrc/ (logging registers, spills and the
+tensor-core instructions of the channelizer's bf16 engine), holds each
+kernel against its plain PyTorch version on the card (phases 2, 2b, 2c
+and 2d: the front end, the feedforward stereo + RDS kernels, the IF
+bank's four-stream variant and the carrier loops with the sequential
+loop's chain floor and its joint launch against two single ones, then
+the wideband channelizer), drives the receivers through their entry
+points, and checks the audio and the RDS decode.
 Each path runs with the launch counts set to 0 and names the kernels it
 must launch and those it must not:
   - mono: the CLI with --fast and --exact-fast, 128-station steps;
@@ -37,7 +40,8 @@ computes the same function, that call's time (phase 2c's entries name
 the lengths compared).
 Imports nothing of jax or sdr_tpu.  It also prints torch.profiler
 breakdowns of the 128-station and wideband steps (device time by kernel,
-busy time, host enqueue time per step).
+busy time, host enqueue time per step), each trace's kernel events held
+against the launch counts.
 """
 
 from __future__ import annotations
@@ -123,6 +127,10 @@ WIDE_BLOCKS_PER_STEP = 16
 # the wideband CLI's receiver profiles (sdr_tpu/cli.py:316-318)
 WIDE_FAST = dict(fused_frontend=False, pll_impl="ff")
 WIDE_DEFAULT = dict(fused_frontend=False, pll_impl="auto")
+# B7's (ingest, compute, out) dtype variants in phase 2d
+MFB_VARIANTS = (("u8", "f32", "f32"), ("u8", "bf16", "f32"),
+                ("u8", "bf16", "bf16"), ("f32", "f32", "f32"),
+                ("f32", "bf16", "f32"))
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -194,12 +202,57 @@ def mfb_work(pl, n_out: int, ingest: str, compute: str,
     return nbytes, ops
 
 
+def tensor_core_sass(lib: Path) -> str:
+    """The tensor-core instructions (HMMA) in the SASS of B7's bf16 engine
+    (`mfb_tc_kernel`, cuobjdump); raises where there are none."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
+        "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fns, fn = {}, set(), None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "mfb_tc_kernel" in fn:
+            m = re.search(r"\b(HMMA\.\S+)", line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+                fns.add(fn)
+    if not counts:
+        raise AssertionError("no HMMA instruction in mfb_tc_kernel's SASS")
+    return (f"cuobjdump: mfb_tc_kernel ({len(fns)} instances) holds "
+            + ", ".join(f"{n} {op}" for op, n in sorted(counts.items())))
+
+
 def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_device_ms(fn, reps: int, symbol: str) -> float:
+    """Mean device time a call of fn() spends in the kernels whose name
+    holds `symbol`, from torch.profiler over reps calls after a warm-up:
+    the kernel alone, without the wrapper's small PyTorch ops or the
+    host's pace.  0.0 where the profiler recorded no such event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if symbol in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if t is None else t
+    return total / reps / 1e3
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -642,6 +695,65 @@ def check_loop_kernels(blocks, device, reps: int = 5) -> dict:
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["pll"] = (err, ms, plain_ms, n, n)
     del want
+    # the feedback pair's sincosf gives sinf's and cosf's bits everywhere
+    differ = K.sincos_differences(device)
+    if differ:
+        raise AssertionError(f"sincosf differs from sinf/cosf on {differ} "
+                             "float32 arguments")
+    log("kernel pll: sincosf gives the bits of sinf and cosf for every "
+        "finite float32")
+    # B8's chain floor: one thread, its input in registers (shared memory),
+    # nothing else issued; its state equals the plain loop's bit for bit.
+    # The ms come from the kernel's own %globaltimer, at the clock the loop
+    # ran; cycles over ns is that clock.
+    floors = {}
+    for name, kw in {"exact": {}, "poly": dict(exact=False),
+                     "counter": dict(wrap_phase=False,
+                                     lag_correction=False)}.items():
+        x1 = pilot[0, :8192].contiguous()
+        cps, nps, fin = K.chain_floor(x1, pll_init((), device),
+                                      params=pilot_params, **kw)
+        _, want = K.pll_kernel_reference(x1, pll_init((), device),
+                                         **pilot_kw, **kw)
+        if not torch.equal(fin, torch.stack(list(want))):
+            raise AssertionError(f"pll chain floor/{name}: its state "
+                                 "differs from the plain loop's")
+        floor_ms = n * nps / 1e6
+        floors[name] = (cps, floor_ms, cps / nps * 1e3)
+        log(f"kernel pll chain floor/{name}: {cps:.1f} cycles, {nps:.2f} "
+            f"ns a sample (one thread over 8192 samples, clock64 and "
+            f"globaltimer; {cps / nps * 1e3:.0f} MHz while it ran), "
+            f"{floor_ms:.2f} ms for n={n}")
+    # the joint launch: the pilot and RDS loops as the receiver runs them,
+    # against two single launches, bit for bit
+    rds_kw = dict(freq=carrier_params[0], fs=carrier_params[1],
+                  nco_scale=carrier_params[2],
+                  norm_bandwidth=carrier_params[4])
+    joint = K.pll_loop_multi((pilot, carrier), (st, st),
+                             params=(pilot_params, carrier_params))
+    singles = (K.pll_loop(pilot, st, **pilot_kw),
+               K.pll_loop(carrier, st, **rds_kw))
+    torch.cuda.synchronize()
+    for g, (nco, new) in enumerate(singles):
+        if not (torch.equal(joint[0][g], nco) and all(
+                torch.equal(a, b) for a, b in zip(joint[1][g], new))):
+            raise AssertionError(f"pll joint launch: instance {g} differs "
+                                 "from its single launch")
+    del joint, singles
+    joint_ms = cuda_ms(lambda: K.pll_loop_multi(
+        (pilot, carrier), (st, st), params=(pilot_params, carrier_params)),
+        1)
+    two_ms = cuda_ms(lambda: (K.pll_loop(pilot, st, **pilot_kw),
+                              K.pll_loop(carrier, st, **rds_kw)), 1)
+    log(f"kernel pll joint: (2 x C={c}, n={n}) equals two single launches "
+        f"bit for bit; one joint launch {joint_ms:.4f} ms, two single "
+        f"launches {two_ms:.4f} ms")
+    results["pll_extra"] = dict(
+        floor_cycles_per_sample=floors["exact"][0],
+        floor_ms=floors["exact"][1], clock_mhz=floors["exact"][2],
+        floor_poly_cycles_per_sample=floors["poly"][0],
+        floor_counter_cycles_per_sample=floors["counter"][0],
+        joint_ms=joint_ms, two_single_ms=two_ms)
     # B8's counter and polynomial modes at both ends of the block
     tail_n = END_N - 1
     for name, kw in {"counter": dict(exact=True, wrap_phase=False,
@@ -712,24 +824,21 @@ def check_channelizer(device, reps: int = 20) -> dict:
     stream and on the pre-phased (2D, N/D) layout: the two must agree bit
     for bit and hold the same carried state as the plain version; the
     kernel is within 2e-5 of max|plain| (another summation order; plus
-    one bf16 ulp for a bf16 output).  Times the kernel on both layouts,
-    the plain version and, as the library yardstick, the cuBLAS
+    one bf16 ulp for a bf16 output).  Times the kernel on both layouts
+    (its device time, torch.profiler) and the wrapper's whole call (CUDA
+    events), the plain version and, as the library yardstick, the cuBLAS
     torch.matmul of the bank (2Kp x 2D*n_shift) against the materialized
-    im2col (the GEMM alone, without the rotation; the port never calls
-    it).  Returns {variant: (max_abs_err, ms, plain_ms, library_ms,
-    bound_ms, bound_by)}."""
-    import numpy as np
+    im2col in the compute dtype (float32, or bf16 for the bf16 engine:
+    the GEMM alone, without the rotation; the port never calls it).
+    Returns {variant: (max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by, flat_ms, call_ms)}."""
     import torch
     from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
     from sdr_tpu_torch.ops.cuda.channelizer_kernel import (
         EXT, call_cols_reference)
     n_wide = 1 << 20
-    rng = np.random.default_rng(0)
-    results, library_ms = {}, None
-    for ingest, compute, out in (("u8", "f32", "f32"), ("u8", "bf16", "f32"),
-                                 ("u8", "bf16", "bf16"),
-                                 ("f32", "f32", "f32"),
-                                 ("f32", "bf16", "f32")):
+    results, library_ms = {}, {}
+    for ingest, compute, out in MFB_VARIANTS:
         chan = WidebandChannelizer(FS_WIDE, 2.4e6, WIDE_FREQS, engine="pallas",
                                    ingest=ingest, compute_dtype=compute,
                                    out_dtype=out, device=device)
@@ -761,10 +870,18 @@ def check_channelizer(device, reps: int = 20) -> dict:
                 err = max(err, max_err(g, w, 2e-5, out == "bf16",
                                        f"mfb/{name} {what} call {b}"))
         st = pl.init_state()
-        ms = cuda_ms(lambda: pl.call_cols(xbt, st), reps)
-        flat_ms = cuda_ms(lambda: pl(flat, st), reps)
+        # the kernel's own device time (profiler); the wrapper's call,
+        # with its small PyTorch ops for the phasor tables and the state,
+        # by CUDA events
+        ms = kernel_device_ms(lambda: pl.call_cols(xbt, st), reps, "mfb_")
+        flat_ms = kernel_device_ms(lambda: pl(flat, st), reps, "mfb_")
+        call_ms = cuda_ms(lambda: pl.call_cols(xbt, st), reps)
+        if not (ms > 0 and flat_ms > 0):
+            raise AssertionError(f"mfb/{name}: the profiler recorded no "
+                                 "kernel event: the kernel's time is not "
+                                 "measured")
         plain_ms = cuda_ms(lambda: call_cols_reference(pl, xbt, st), 3)
-        if library_ms is None:
+        if compute not in library_ms:
             x = torch.cat([st["tail"], xbt], dim=1).float()
             if ingest == "u8":
                 x = (x - 128.0) / 128.0
@@ -772,19 +889,61 @@ def check_channelizer(device, reps: int = 20) -> dict:
                     + pl._n_shift - 1]
             xim = win.unfold(1, n_out, 1).transpose(0, 1).reshape(-1, n_out
                                                                   ).clone()
-            library_ms = cuda_ms(lambda: torch.matmul(pl._bm_dev, xim), reps)
-            del x, win, xim
+            dt = torch.bfloat16 if compute == "bf16" else torch.float32
+            bank, xim = pl._bm_dev.to(dt), xim.to(dt)
+            library_ms[compute] = cuda_ms(lambda: torch.matmul(bank, xim),
+                                          reps)
+            del x, win, xim, bank
         bound_ms, bound_by = roofline(*mfb_work(pl, n_out, ingest, compute,
                                                 out))
-        results[name] = (err, ms, plain_ms, library_ms, bound_ms, bound_by)
+        results[name] = (err, ms, plain_ms, library_ms[compute], bound_ms,
+                         bound_by, flat_ms, call_ms)
         log(f"kernel mfb/{name}: (K={pl.k}, 2D={two_d}, n_out={n_out}, bank "
             f"{2 * pl.kp}x{two_d * pl._n_shift}) max|err| {err:.3g}, kernel "
-            f"{ms:.4f} ms (flat stream {flat_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, cuBLAS GEMM alone {library_ms:.4f} ms; "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"{ms:.4f} ms (flat stream {flat_ms:.4f} ms; the wrapper's whole "
+            f"call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS "
+            f"{compute} GEMM alone {library_ms[compute]:.4f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         del chan, pl, flat, xbt, i_f, q_f, i_c, q_c, i_p, q_p
         torch.cuda.empty_cache()
     return results
+
+
+def time_mfb(root: Path, reps: int = 20) -> None:
+    """B7 of the checkout at `root` (another commit's sdr_tpu_torch, built
+    from its own csrc/) timed as phase 2d times it, at phase 2d's shape and
+    in its five variants: the kernel's device time (torch.profiler) and
+    the wrapper's whole call (CUDA events).  So two commits' kernels are
+    compared by the same two measures:
+    `python3 chip_smoke.py --time-mfb DIR`."""
+    import torch
+    sys.path.insert(0, str(root))
+    import sdr_tpu_torch
+    from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+    if Path(sdr_tpu_torch.__file__).resolve().parents[1] != root:
+        raise SystemExit(f"sdr_tpu_torch was not imported from {root}")
+    log(f"nvidia-smi: {card_info()}")
+    log(f"B7 of {root}")
+    n_wide = 1 << 20
+    for ingest, compute, out in MFB_VARIANTS:
+        pl = WidebandChannelizer(FS_WIDE, 2.4e6, WIDE_FREQS, engine="pallas",
+                                 ingest=ingest, compute_dtype=compute,
+                                 out_dtype=out, device="cuda")._pl
+        two_d, n_out = 2 * pl.decim, n_wide // pl.decim
+        if ingest == "u8":
+            flat = torch.randint(0, 256, (2 * n_wide,), dtype=torch.uint8,
+                                 device="cuda")
+        else:
+            flat = 0.3 * torch.randn(2 * n_wide, device="cuda")
+        xbt = flat.reshape(n_out, two_d).T.contiguous()
+        st = pl.init_state()
+        ms = kernel_device_ms(lambda: pl.call_cols(xbt, st), reps, "mfb_")
+        if not ms > 0:
+            raise AssertionError("the profiler recorded no mfb_ kernel event")
+        call_ms = cuda_ms(lambda: pl.call_cols(xbt, st), reps)
+        log(f"time mfb/{ingest}/{compute}->{out}: kernel {ms:.4f} ms "
+            f"(profiler), the wrapper's whole call {call_ms:.4f} ms (CUDA "
+            f"events), mean of {reps}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1097,6 +1256,7 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     import numpy as np
     import torch
     from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
     from sdr_tpu_torch.utils.compare import stereo_separation_db
     profile = STEREO_PROFILE if profile is None else profile
     c, bs = blocks.shape[1], blocks.shape[2]
@@ -1110,6 +1270,7 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     cst = crx.init_state((k,)) if check_cpu else None
     n_if = bs // (2 * rx.cfg.rf_decim)
     rate_a = rx.cfg.audio_fs
+    launched = LAUNCHES["pll"]
     for b, blk in enumerate(blocks):
         st, out = rx.step(st, blk)
         for key, n in (("left", n_if // rx.cfg.audio_decim),
@@ -1142,6 +1303,7 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
                                      f"{int(np.argmin(sep))}")
             log(f"real size {name} step {b}: every station's separation "
                 f"> 20 dB (min {min(sep):.1f}, max {max(sep):.1f} dB)")
+    check_joint_loops(rx, LAUNCHES["pll"] - launched, len(blocks), name)
     state, feed = st, itertools.cycle(blocks)
 
     def one_step():
@@ -1156,6 +1318,19 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     del rx, state, st, out
     torch.cuda.empty_cache()
     return ms, rate
+
+
+def check_joint_loops(rx, launched: int, steps: int, name: str) -> None:
+    """A receiver whose stereo and RDS carriers both run the sequential
+    loop launches B8 once a step for both (pll_loop_multi), not twice."""
+    if not (rx.stereo and rx.rds and (rx.compat_pll or rx.pll_impl in (
+            "scan", "pallas"))):
+        return
+    if launched != steps:
+        raise AssertionError(f"{name}: {launched} B8 launches in {steps} "
+                             "steps, not one joint launch a step")
+    log(f"real size {name}: one joint B8 launch a step for both loops "
+        f"({launched} in {steps} steps)")
 
 
 def wideband_stations_u8(device, pairs: int, amplitude: float = 0.025):
@@ -1244,6 +1419,7 @@ def run_real_size_wideband(wide_u8, device, name: str, compute: str,
     from sdr_tpu_torch.models.receiver import Receiver
     from sdr_tpu_torch.models.wideband import WidebandReceiver
     from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
 
     def build(freqs, dev):
         chan = WidebandChannelizer(FS_WIDE, 2.4e6, freqs, engine="pallas",
@@ -1263,6 +1439,7 @@ def run_real_size_wideband(wide_u8, device, name: str, compute: str,
     cst = cwrx.init_state() if check_cpu else None
     check_mfb_at_step(wrx.chan._pl, blocks[0], st[0], name, compute)
     cpu_s = 0.0
+    launched = LAUNCHES["pll"]
     for b, blk in enumerate(blocks[:2]):
         st, out = wrx.step(st, blk)
         for key, v in out.items():
@@ -1284,6 +1461,7 @@ def run_real_size_wideband(wide_u8, device, name: str, compute: str,
         else:
             log(f"real size {name} step {b}: every output finite on all "
                 f"{len(WIDE_FREQS)} stations")
+    check_joint_loops(wrx.rx, LAUNCHES["pll"] - launched, 2, name)
     state, feed = st, itertools.cycle(blocks)
 
     def one_step():
@@ -1344,43 +1522,91 @@ def run_loop_engines(device: str, seconds: float = 1.2) -> None:
         log(f"loop engine {msg}, {secs:.2f} s wall incl. set-up")
 
 
+# kernel symbol in a profiler trace -> the LAUNCHES keys that launch it
+KERNEL_SYMBOLS = {"frontend_kernel": ("frontend_demod", "frontend"),
+                  "ifbank_kernel": ("ifbank_mix", "ifbank"),
+                  "ffmix_kernel": ("ffmix",), "pair_kernel": ("audio_pair",),
+                  "pll_loop_kernel": ("pll",),
+                  "pll_chunked_kernel": ("pll_chunked", "pll_chunked_multi"),
+                  "mfb_": ("mfb",)}
+
+
 def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
                   label: str = "stereo+RDS"):
     """torch.profiler breakdown of rx.step: device time per kernel (mean
     of `steps` steps, after one warm-up profiler cycle that sets CUPTI
     up), the device's busy time and its idle share of step_ms (the step
     by CUDA events, without the profiler), and the host's enqueue time
-    per step without the profiler.  A measurement, not a gate: where the
+    per step without the profiler.  Each profiler window opens with one
+    step in its warm-up phase (traced, left out of the results), so that a
+    trace which drops the first kernel of its window drops one of that
+    step.  Each kernel's event count in the trace is held against
+    build.LAUNCHES over the profiled steps; where they differ (the trace
+    lost events) it says so and profiles once more.  The steps taken here
+    do not count in the path's launches: build.LAUNCHES is as it was on
+    entry when this returns.  A measurement, not a gate: where the
     profiler sees no device time it says so.  Returns the advanced
     state."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    counted = dict(LAUNCHES)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):
         state, _ = rx.step(state, blocks[0])
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        for i in range(steps):
-            state, _ = rx.step(state, blocks[i % len(blocks)])
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps * 1e3
-    rows, busy = [], 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0 and not e.key.startswith(("aten::", "cuda")):
-            rows.append((t / steps / 1e3, e.count // steps, e.key))
-            busy += t / steps / 1e3
     tag = f"profile [{label}]:"
+
+    def profiled():
+        nonlocal state
+        sched = schedule(wait=0, warmup=1, active=steps, repeat=1)
+        with profile(activities=acts, schedule=sched) as prof:
+            state, _ = rx.step(state, blocks[0])
+            torch.cuda.synchronize()
+            prof.step()
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state, _ = rx.step(state, blocks[i % len(blocks)])
+                if i == steps - 1:
+                    torch.cuda.synchronize()
+                prof.step()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        rows = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            # ProfilerStep* is the schedule's span of a step, not a kernel
+            if t > 0 and not e.key.startswith(("aten::", "cuda",
+                                               "ProfilerStep")):
+                rows.append((t / steps / 1e3, e.count, e.key))
+        lost = []
+        for sym, keys in KERNEL_SYMBOLS.items():
+            seen = sum(n for _, n, key in rows if sym in key)
+            want = sum(LAUNCHES[k] - before[k] for k in keys)
+            if seen != want:
+                lost.append(f"{sym} {seen} events for {want} launches")
+        return rows, wall, lost
+
+    rows, wall, lost = profiled()
+    if lost:
+        log(f"{tag} the trace lost events ({'; '.join(lost)}): profiling "
+            "again")
+        rows, wall, lost = profiled()
+        if lost:
+            log(f"{tag} the second trace lost events too "
+                f"({'; '.join(lost)}): its numbers are incomplete")
+    busy = sum(t for t, _, _ in rows)
     if busy == 0.0:
         log(f"{tag} torch.profiler recorded no device time: not measured")
     log(f"{tag} wall under the profiler {wall:.3f} ms/step, device busy "
         f"{busy:.3f} ms/step (mean of {steps} steps), idle share "
-        f"{1 - busy / step_ms:.3f} of the {step_ms:.3f} ms step")
+        f"{1 - busy / step_ms:.3f} of the {step_ms:.3f} ms step"
+        + ("" if lost else "; every kernel's trace events match its "
+           "launches"))
     for t, n, key in sorted(rows, reverse=True)[:25]:
-        log(f"{tag} {t:9.4f} ms  x{n:3d}  {key[:100]}")
+        log(f"{tag} {t:9.4f} ms  x{n // steps:3d}  {key[:100]}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
@@ -1388,6 +1614,7 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
     host = (time.perf_counter() - t0) / steps * 1e3
     torch.cuda.synchronize()
     log(f"{tag} host enqueue {host:.3f} ms/step (no sync)")
+    LAUNCHES.update(counted)
     return state
 
 
@@ -1395,10 +1622,17 @@ def main() -> int:
     if not (ROOT / "sdr_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py runs from a checkout of the repo "
                          "(sdr_tpu_torch/ not found beside it)")
-    sys.path.insert(0, str(ROOT))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke.py runs on the GPU")
+    if sys.argv[1:2] == ["--time-mfb"]:
+        if len(sys.argv) != 3:
+            raise SystemExit("usage: chip_smoke.py [--time-mfb CHECKOUT]")
+        time_mfb(Path(sys.argv[2]).resolve())
+        return 0
+    if len(sys.argv) > 1:
+        raise SystemExit("usage: chip_smoke.py [--time-mfb CHECKOUT]")
+    sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
     card = card_info()
     kind = torch.cuda.get_device_name(0)
@@ -1424,6 +1658,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
         "registers a thread, no spills unless listed above")
+    log("  " + tensor_core_sass(build.library_path()))
 
     from sdr_tpu_torch.models.receiver import Receiver
     bs = Receiver(MODE, **REAL_PROFILES["fast_int8"]).block_size_u8(
@@ -1617,14 +1852,24 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         extra, library_ms = {}, None
         if name == "mfb":
-            # bench.py's channelizer check: u8 pre-phased, f32 compute/out
-            err, ms, plain_ms, library_ms, bound_ms, bound_by = wkern[
+            # bench.py's channelizer check: u8 pre-phased, f32 compute/out;
+            # every variant beside it (the bf16 engine's library time is
+            # the bf16 cuBLAS GEMM)
+            err, ms, plain_ms, library_ms, bound_ms, bound_by, *_ = wkern[
                 "u8/f32->f32"]
+            extra = {"variants": {
+                v: dict(zip(("max_abs_err", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by", "flat_ms", "call_ms"),
+                            r)) for v, r in wkern.items()}}
         else:
             if name in lkern:
                 # phase 2c's kernels: the lengths compared and timed
                 err, ms, plain_ms, n, plain_n = lkern[name]
                 extra = {"n": n, "plain_n": plain_n}
+                if name == "pll":
+                    # the chain floor beside the roofline bound, and the
+                    # joint launch of both loops beside two single ones
+                    extra.update(lkern["pll_extra"])
             elif name in skern:
                 # the stereo + RDS path's engines: bf16 IF bank and streams
                 err, ms, plain_ms, *lib = skern[name]

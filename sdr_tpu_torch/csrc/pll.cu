@@ -2,7 +2,8 @@
 // the chunked frozen-feedback loop.
 //
 // Replaces three Pallas kernels of sdr_tpu/ops/pallas/pll_kernel.py:
-//   - `_pll_kernel` (via pll_pallas): sdr_pll below.  With exact=1 (libm
+//   - `_pll_kernel` (via pll_pallas): sdr_pll_multi below, G loops in one
+//     launch (G = 1 is the single loop).  With exact=1 (libm
 //     atan2f) it also runs the scan engine sdr_tpu/ops/pll.py `pll`, in
 //     both of its modes (wrap_phase, and the reference's trigOffset
 //     counter that compat_pll selects) and with or without lag correction;
@@ -38,14 +39,28 @@
 // What bounds them on the card:
 //   - the sequential loop is one dependent chain per channel and sample:
 //     atan2 -> PI update -> mod -> sin/cos -> next atan2, a few hundred
-//     cycles.  A step has only C x G channels (128-256), each a thread, on
+//     cycles.  A step has only C x G channels (128-256), each a lane, on
 //     132 SMs: the chain's latency bounds it, not memory (4-8 bytes per
-//     sample) and not issue.  The design: one thread per channel, 32
-//     channels per block so that a warp has an SM to itself, the state in
-//     registers, the input read 4 samples ahead as one vector load so
-//     that memory latency stays off the chain, and the wrap's floor
-//     modulo by an exact shortcut: fmodf every sample took the exact
-//     mode from ~262 to ~301 ms at 128 x 768,000 (PERF.md).
+//     sample) and not issue.  n x (the chain's cycles a sample) at the
+//     card's clock is its real bound; chain_floor_kernel measures those
+//     cycles (one thread, its input staged in shared memory, nothing else
+//     issued).  The design (pll_loop_kernel): every loop of a receiver
+//     step in one launch (G instances, each on its own blocks, so the
+//     pilot and RDS loops run side by side), and warp specialisation, so
+//     that the chain's warp issues only the recurrence: a producer warp
+//     stages x into a shared ring ahead of it, consumer warps take the
+//     NCO's cos (half the libm work of a sample) and its stores off it and
+//     write nco in coalesced row segments.  32 channels a block: one chain
+//     warp's lanes; the block has 4 warps, one per scheduler of the SM, so
+//     the chain warp has a scheduler to itself; its loop is unrolled by 2
+//     (of 1, 2 and 4 the fastest on the card, at the same bits).  Rings of
+//     4 slots of 32 samples: the producer and the consumers have 3 tiles of
+//     slack each, ~45,000 cycles of the chain, and the rings take 34 KB.
+//     The producer uses plain loads (a bf16 row may start on any element,
+//     which cp.async's 4-byte minimum does not take; it moves 4 bytes per
+//     channel per ~500 cycles).  The wrap's floor modulo takes an exact
+//     shortcut: fmodf every sample took the exact mode from ~262 to ~301
+//     ms at 128 x 768,000 (PERF.md).
 //   - the chunked loop has a chain per chunk instead of per sample: the
 //     prediction's sin/cos and the detector run on all K samples at once,
 //     then the two scans.  One segment of W lanes (W = K rounded up to a
@@ -62,23 +77,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <type_traits>
 
 namespace {
 
-constexpr int kLoopThreads = 32;    // sequential loop: channels per block
 constexpr int kChunkThreads = 128;  // chunked loop: 4 warps per block
 constexpr int kMaxGroups = 4;       // instances of one chunked launch
 
-// Input samples are loaded a step ahead as raw bits (Raw1, Raw4) and
+// Input samples are loaded ahead of their use as raw bits (Raw1) and
 // widened to float32 only where they are used: a conversion right after
 // the load would stall the warp on the load and undo the prefetch.
 template <bool BF16>
 using Raw1 = std::conditional_t<BF16, __nv_bfloat16, float>;
-template <bool BF16>
-using Raw4 = std::conditional_t<BF16, uint2, float4>;
 
 template <bool BF16>
 __device__ __forceinline__ Raw1<BF16> load1(const void* p, size_t i) {
@@ -88,23 +99,6 @@ __device__ __forceinline__ Raw1<BF16> load1(const void* p, size_t i) {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// samples i..i+3, from an address 16-byte (float32) or 8-byte (bf16)
-// aligned
-template <bool BF16>
-__device__ __forceinline__ Raw4<BF16> load4(const void* p, size_t i) {
-  return *reinterpret_cast<const Raw4<BF16>*>(
-      static_cast<const Raw1<BF16>*>(p) + i);
-}
-
-__device__ __forceinline__ float4 widen(float4 v) { return v; }
-__device__ __forceinline__ float4 widen(uint2 u) {
-  __nv_bfloat162 a, b;
-  memcpy(&a, &u.x, 4);
-  memcpy(&b, &u.y, 4);
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
 }
 
 // floor modulo: the result takes the divisor's sign (jnp.mod), fmodf plus
@@ -157,79 +151,231 @@ struct LoopParams {
   float kp, ki, w0, wmod, scale, adj;
 };
 
-// st_in / st_out: (5, C) float32 rows integ, acc, fbi, fbq, trig.  The
-// bases of x and nco are 16-byte aligned (sdr_pll checks), so sample i of
-// row c starts a vector where c n + i is a multiple of 4: a row steps
-// through up to 3 samples one at a time, then 4 at a time, then its last
-// up to 3 one at a time.
+// ---------------------------------------------------------- sequential loop
+// One channel's loop state, kept in registers by the chain warp.
+struct Chain {
+  float integ, acc, fbi, fbq, trig;
+};
+
+// One sample of the recurrence: updates the state and returns `out`, the
+// NCO's argument before the scale (the feedback's own sin/cos stay on the
+// chain; the NCO's cos does not).
+template <bool EXACT, bool WRAP, bool LAG>
+__device__ __forceinline__ float chain_step(Chain& s, float xi,
+                                            const LoopParams& p) {
+  const float e =
+      detect<EXACT>(__fmul_rn(xi, -s.fbq), __fmul_rn(xi, s.fbi));
+  s.integ = __fadd_rn(s.integ, __fmul_rn(p.ki, e));
+  float arg;
+  if constexpr (WRAP) {
+    s.acc = mod_floor<true>(
+        __fadd_rn(__fadd_rn(__fadd_rn(s.acc, p.w0), __fmul_rn(p.kp, e)),
+                  s.integ),
+        p.wmod);
+    arg = s.acc;
+  } else {
+    s.acc = __fadd_rn(__fadd_rn(s.acc, __fmul_rn(p.kp, e)), s.integ);
+    s.trig = __fadd_rn(s.trig, 1.f);
+    arg = __fadd_rn(__fmul_rn(p.w0, s.trig), s.acc);
+  }
+  // the feedback pair by one sincosf (one range reduction): it gives the
+  // bits of cosf and sinf for every finite float32 on the card
+  // (sdr_sincos_check, chip_smoke.py phase 2c)
+  sincosf(arg, &s.fbq, &s.fbi);
+  return LAG ? __fsub_rn(arg, p.w0) : arg;
+}
+
+__device__ __forceinline__ float nco_of(float out, const LoopParams& p) {
+  return cosf(__fadd_rn(__fmul_rn(out, p.scale), p.adj));
+}
+
+// mbarriers in shared memory (sm_90): arrive has release and try_wait
+// acquire semantics at CTA scope, so the stores to a ring slot made before
+// an arrive are seen by the threads that waited on it.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b))
+               : "memory");
+}
+
+// waits until the phase of the given parity has completed; on a fresh
+// barrier, parity 1 (the phase "before" the first) counts as completed
+__device__ __forceinline__ void bar_wait(uint64_t* b, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The warp-specialised sequential loop.  A block owns kLanes channels of one
+// instance and has 2 + kConsumers warps:
+//   warp 0, the chain: lane j runs channel j's recurrence with its state in
+//     registers; it reads x from the x ring and writes each sample's `out`
+//     into the out ring, and does nothing else;
+//   warp 1, the producer: stages x tiles (kLanes channels x kTile samples,
+//     widened to float32) into the x ring, kSlots tiles ahead of the chain;
+//     lane i loads sample i of each channel, so each load is one row's
+//     consecutive samples;
+//   warps 2.., the consumers: nco = cos(out scale + adj) from the out ring,
+//     lane i on sample i of a channel, so the stores of a warp are one row's
+//     consecutive samples (coalesced), not one lane per row.
+// Each ring slot is a (kTile, kLanes + 1) float32 array: the chain reads and
+// writes row i across lanes, the producer and consumers column c across
+// lanes, both conflict-free.  One mbarrier per slot and direction signals
+// full and empty.
+constexpr int kLanes = 32;      // channels of a block: the chain warp's lanes
+constexpr int kTile = 32;       // samples of a ring slot
+constexpr int kSlots = 4;       // ring depth
+constexpr int kConsumers = 2;   // NCO warps
+constexpr int kLoopThreads = 32 * (2 + kConsumers);
+constexpr int kPad = kLanes + 1;
+constexpr int kMaxLoops = 4;    // instances of one launch
+
+struct LoopArgs {
+  const void* x[kMaxLoops];      // (C_g, n) float32 or bf16
+  const float* st_in[kMaxLoops];  // (5, C_g): integ, acc, fbi, fbq, trig
+  float* nco[kMaxLoops];         // (C_g, n) float32
+  float* st_out[kMaxLoops];      // (5, C_g)
+  int channels[kMaxLoops];
+  int first_block[kMaxLoops];    // the instance's first block
+  LoopParams p[kMaxLoops];
+  int loops;
+  long long n;
+};
+
 template <bool BF16, bool EXACT, bool WRAP, bool LAG>
-__global__ void __launch_bounds__(kLoopThreads)
-    pll_loop_kernel(const void* __restrict__ x, const float* __restrict__ st_in,
-                    float* __restrict__ nco, float* __restrict__ st_out,
-                    int channels, long long n, LoopParams p) {
-  const int c = blockIdx.x * kLoopThreads + threadIdx.x;
-  if (c >= channels) return;
-  float integ = st_in[c], acc = st_in[channels + c];
-  float fbi = st_in[2 * channels + c], fbq = st_in[3 * channels + c];
-  float trig = st_in[4 * channels + c];
-  const size_t row = (size_t)c * (size_t)n;
+__global__ void __launch_bounds__(kLoopThreads, 1)
+    pll_loop_kernel(const __grid_constant__ LoopArgs a) {
+  __shared__ float xring[kSlots][kTile][kPad];
+  __shared__ float oring[kSlots][kTile][kPad];
+  // x staged, x slot free, out staged, out slot free
+  __shared__ uint64_t bars[4][kSlots];
 
-  auto step = [&](float xi) -> float {
-    const float e = detect<EXACT>(__fmul_rn(xi, -fbq), __fmul_rn(xi, fbi));
-    integ = __fadd_rn(integ, __fmul_rn(p.ki, e));
-    float arg;
-    if constexpr (WRAP) {
-      acc = mod_floor<true>(
-          __fadd_rn(__fadd_rn(__fadd_rn(acc, p.w0), __fmul_rn(p.kp, e)),
-                    integ),
-          p.wmod);
-      arg = acc;
-    } else {
-      acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(p.kp, e)), integ);
-      trig = __fadd_rn(trig, 1.f);
-      arg = __fadd_rn(__fmul_rn(p.w0, trig), acc);
+  int g = 0;
+  for (int k = 1; k < a.loops; ++k)
+    if ((int)blockIdx.x >= a.first_block[k]) g = k;
+  const void* x = nullptr;
+  const float* st_in = nullptr;
+  float* nco = nullptr;
+  float* st_out = nullptr;
+  LoopParams p = a.p[0];
+  int channels = 0, first = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxLoops; ++k)
+    if (k == g) {
+      x = a.x[k];
+      st_in = a.st_in[k];
+      nco = a.nco[k];
+      st_out = a.st_out[k];
+      p = a.p[k];
+      channels = a.channels[k];
+      first = a.first_block[k];
     }
-    fbi = cosf(arg);
-    fbq = sinf(arg);
-    const float out = LAG ? __fsub_rn(arg, p.w0) : arg;
-    return cosf(__fadd_rn(__fmul_rn(out, p.scale), p.adj));
-  };
-
-  const long long head = min(n, (long long)((4 - (row & 3)) & 3));
-  const long long n4 = (n - head) / 4;
-  for (long long i = 0; i < head; ++i)
-    nco[row + (size_t)i] = step(widen(load1<BF16>(x, row + (size_t)i)));
-  if (n4 > 0) {
-    const size_t vrow = row + (size_t)head;
-    Raw4<BF16> next = load4<BF16>(x, vrow);
-    for (long long q = 0; q < n4; ++q) {
-      const float4 cur = widen(next);
-      if (q + 1 < n4) next = load4<BF16>(x, vrow + 4 * (size_t)(q + 1));
-      float4 o;
-      o.x = step(cur.x);
-      o.y = step(cur.y);
-      o.z = step(cur.z);
-      o.w = step(cur.w);
-      reinterpret_cast<float4*>(nco + vrow)[q] = o;
+  const int c0 = ((int)blockIdx.x - first) * kLanes;
+  const int live = min(kLanes, channels - c0);   // channels of this block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      bar_init(&bars[0][s], 32);
+      bar_init(&bars[1][s], 32);
+      bar_init(&bars[2][s], 32);
+      bar_init(&bars[3][s], 32 * kConsumers);
     }
   }
-  for (long long i = head + 4 * n4; i < n; ++i)
-    nco[row + (size_t)i] = step(widen(load1<BF16>(x, row + (size_t)i)));
-  st_out[c] = integ;
-  st_out[channels + c] = acc;
-  st_out[2 * channels + c] = fbi;
-  st_out[3 * channels + c] = fbq;
-  st_out[4 * channels + c] = trig;
+  __syncthreads();
+  const long long n = a.n;
+  const long long tiles = (n + kTile - 1) / kTile;
+
+  if (warp == 0) {
+    // the chain
+    const int c = c0 + lane;
+    Chain s{0.f, 0.f, 1.f, 0.f, 0.f};
+    if (lane < live)
+      s = Chain{st_in[c], st_in[channels + c], st_in[2 * channels + c],
+                st_in[3 * channels + c], st_in[4 * channels + c]};
+    for (long long t = 0; t < tiles; ++t) {
+      const int slot = (int)(t % kSlots);
+      const unsigned par = (unsigned)((t / kSlots) & 1);
+      const int cnt = (int)min((long long)kTile, n - t * kTile);
+      bar_wait(&bars[0][slot], par);
+      bar_wait(&bars[3][slot], par ^ 1u);
+      const float* xr = &xring[slot][0][lane];
+      float* orow = &oring[slot][0][lane];
+      float xn = xr[0];
+#pragma unroll 2
+      for (int i = 0; i < cnt; ++i) {
+        const float xi = xn;
+        if (i + 1 < cnt) xn = xr[(i + 1) * kPad];   // ahead of the chain
+        orow[i * kPad] = chain_step<EXACT, WRAP, LAG>(s, xi, p);
+      }
+      bar_arrive(&bars[1][slot]);
+      bar_arrive(&bars[2][slot]);
+    }
+    if (lane < live) {
+      st_out[c] = s.integ;
+      st_out[channels + c] = s.acc;
+      st_out[2 * channels + c] = s.fbi;
+      st_out[3 * channels + c] = s.fbq;
+      st_out[4 * channels + c] = s.trig;
+    }
+  } else if (warp == 1) {
+    // the producer
+    for (long long t = 0; t < tiles; ++t) {
+      const int slot = (int)(t % kSlots);
+      const unsigned par = (unsigned)((t / kSlots) & 1);
+      const int cnt = (int)min((long long)kTile, n - t * kTile);
+      bar_wait(&bars[1][slot], par ^ 1u);
+      const size_t i = (size_t)(t * kTile + lane);
+      float v[kLanes];
+#pragma unroll
+      for (int ch = 0; ch < kLanes; ++ch)
+        v[ch] = (ch < live && lane < cnt)
+                    ? widen(load1<BF16>(x, (size_t)(c0 + ch) * (size_t)n + i))
+                    : 0.f;
+#pragma unroll
+      for (int ch = 0; ch < kLanes; ++ch) xring[slot][lane][ch] = v[ch];
+      bar_arrive(&bars[0][slot]);
+    }
+  } else {
+    // the consumers
+    const int cw = warp - 2;
+    for (long long t = 0; t < tiles; ++t) {
+      const int slot = (int)(t % kSlots);
+      const unsigned par = (unsigned)((t / kSlots) & 1);
+      const int cnt = (int)min((long long)kTile, n - t * kTile);
+      bar_wait(&bars[2][slot], par);
+      if (lane < cnt) {
+        const size_t i = (size_t)(t * kTile + lane);
+#pragma unroll 4
+        for (int ch = cw; ch < live; ch += kConsumers)
+          nco[(size_t)(c0 + ch) * (size_t)n + i] =
+              nco_of(oring[slot][lane][ch], p);
+      }
+      bar_arrive(&bars[3][slot]);
+    }
+  }
 }
 
 template <bool BF16, bool EXACT>
 void launch_loop_flags(bool wrap, bool lag, dim3 grid, cudaStream_t s,
-                       const void* x, const float* st_in, float* nco,
-                       float* st_out, int channels, long long n,
-                       const LoopParams& p) {
-#define SDR_LOOP(W, L)                                              \
-  pll_loop_kernel<BF16, EXACT, W, L><<<grid, kLoopThreads, 0, s>>>( \
-      x, st_in, nco, st_out, channels, n, p)
+                       const LoopArgs& a) {
+#define SDR_LOOP(W, L) \
+  pll_loop_kernel<BF16, EXACT, W, L><<<grid, kLoopThreads, 0, s>>>(a)
   if (wrap) {
     if (lag) SDR_LOOP(true, true); else SDR_LOOP(true, false);
   } else {
@@ -238,16 +384,78 @@ void launch_loop_flags(bool wrap, bool lag, dim3 grid, cudaStream_t s,
 #undef SDR_LOOP
 }
 
-template <bool BF16>
-void launch_loop(bool exact, bool wrap, bool lag, dim3 grid, cudaStream_t s,
-                 const void* x, const float* st_in, float* nco, float* st_out,
-                 int channels, long long n, const LoopParams& p) {
-  if (exact)
-    launch_loop_flags<BF16, true>(wrap, lag, grid, s, x, st_in, nco, st_out,
-                                  channels, n, p);
-  else
-    launch_loop_flags<BF16, false>(wrap, lag, grid, s, x, st_in, nco, st_out,
-                                   channels, n, p);
+void launch_loop(bool bf16, bool exact, bool wrap, bool lag, dim3 grid,
+                 cudaStream_t s, const LoopArgs& a) {
+  if (bf16) {
+    if (exact) launch_loop_flags<true, true>(wrap, lag, grid, s, a);
+    else launch_loop_flags<true, false>(wrap, lag, grid, s, a);
+  } else {
+    if (exact) launch_loop_flags<false, true>(wrap, lag, grid, s, a);
+    else launch_loop_flags<false, false>(wrap, lag, grid, s, a);
+  }
+}
+
+// The chain's floor: one thread runs the recurrence alone over x (n <=
+// kFloorN samples) staged in shared memory, the loop of the chain warp
+// (unrolled by 2, as there) without its barriers and its out-ring stores: the next sample is read
+// one step ahead, the outputs are summed off the chain (so that nothing is
+// optimised away).  Writes the loop's clock64 cycles and its %globaltimer
+// nanoseconds (the time at whatever clock the SM ran), the final state and
+// the sum.
+constexpr int kFloorN = 8192;
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+template <bool EXACT, bool WRAP, bool LAG>
+__global__ void chain_floor_kernel(const float* __restrict__ x, int n,
+                                   const float* __restrict__ st_in,
+                                   float* __restrict__ st_out,
+                                   long long* __restrict__ timing,
+                                   LoopParams p) {
+  __shared__ float xs[kFloorN];
+  for (int i = 0; i < n; ++i) xs[i] = x[i];
+  Chain s{st_in[0], st_in[1], st_in[2], st_in[3], st_in[4]};
+  float sink = 0.f;
+  float xn = xs[0];
+  const long long g0 = global_ns();
+  const long long t0 = clock64();
+#pragma unroll 2
+  for (int i = 0; i < n; ++i) {
+    const float xi = xn;
+    if (i + 1 < n) xn = xs[i + 1];
+    sink = __fadd_rn(sink, chain_step<EXACT, WRAP, LAG>(s, xi, p));
+  }
+  asm volatile("mov.b32 %0, %0;" : "+f"(s.fbi));
+  const long long t1 = clock64();
+  const long long g1 = global_ns();
+  st_out[0] = s.integ;
+  st_out[1] = s.acc;
+  st_out[2] = s.fbi;
+  st_out[3] = s.fbq;
+  st_out[4] = s.trig;
+  st_out[5] = sink;
+  timing[0] = t1 - t0;
+  timing[1] = g1 - g0;
+}
+
+// Counts the finite float32 arguments where sincosf differs in any bit
+// from (sinf, cosf): the check that allows chain_step's sincosf.
+__global__ void sincos_check_kernel(unsigned long long* differ) {
+  unsigned long long cnt = 0;
+  for (uint64_t u = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+       u < (1ull << 32); u += (uint64_t)gridDim.x * blockDim.x) {
+    const float v = __uint_as_float((uint32_t)u);
+    if (!isfinite(v)) continue;
+    float sn, cs;
+    sincosf(v, &sn, &cs);
+    cnt += __float_as_uint(sn) != __float_as_uint(sinf(v)) ||
+           __float_as_uint(cs) != __float_as_uint(cosf(v));
+  }
+  atomicAdd(differ, cnt);
 }
 
 // ------------------------------------------------------------ chunked loop
@@ -378,25 +586,61 @@ void launch_chunked(bool exact, bool lag, dim3 grid, cudaStream_t s,
 
 extern "C" {
 
-// The sequential loop over x (C, n), float32 or bf16 (x_bf16), from the
-// state st_in (5, C) float32: writes nco (C, n) float32 and st_out (5, C).
-// x and nco must start on a 16-byte boundary.
-int sdr_pll(const void* x, int x_bf16, int channels, long long n,
-            const float* st_in, float* nco, float* st_out, float kp,
-            float ki, float w0, float wmod, float scale, float adj,
-            int exact, int wrap, int lag, void* stream) {
-  if (channels < 1 || n < 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(nco) % 16 != 0)
+// The sequential loop for `loops` instances in one launch, over a common n,
+// x float32 or bf16 (x_bf16), the state (5, C_g) float32.  ptrs holds 4 addresses per instance (x (C_g, n), st_in (5, C_g), nco
+// (C_g, n), st_out (5, C_g)); params 6 floats per instance (kp, ki, w0,
+// wmod, scale, adj).  Each instance gets its own blocks of kLanes channels,
+// so the instances run side by side on separate SMs.
+int sdr_pll_multi(int loops, const long long* ptrs, const int* channels,
+                  const float* params, int x_bf16, long long n, int exact,
+                  int wrap, int lag, void* stream) {
+  if (loops < 1 || loops > kMaxLoops || n < 1)
     return (int)cudaErrorInvalidValue;
+  LoopArgs a = {};
+  int blocks = 0;
+  for (int g = 0; g < loops; ++g) {
+    if (channels[g] < 1) return (int)cudaErrorInvalidValue;
+    a.x[g] = reinterpret_cast<const void*>(ptrs[4 * g]);
+    a.st_in[g] = reinterpret_cast<const float*>(ptrs[4 * g + 1]);
+    a.nco[g] = reinterpret_cast<float*>(ptrs[4 * g + 2]);
+    a.st_out[g] = reinterpret_cast<float*>(ptrs[4 * g + 3]);
+    a.channels[g] = channels[g];
+    a.first_block[g] = blocks;
+    const float* q = params + 6 * g;
+    a.p[g] = LoopParams{q[0], q[1], q[2], q[3], q[4], q[5]};
+    blocks += (channels[g] + kLanes - 1) / kLanes;
+  }
+  a.loops = loops;
+  a.n = n;
+  launch_loop(x_bf16 != 0, exact != 0, wrap != 0, lag != 0, dim3(blocks),
+              static_cast<cudaStream_t>(stream), a);
+  return (int)cudaGetLastError();
+}
+
+// The chain-floor microbenchmark: one thread, x (n,) float32 with n <=
+// 8192, st_in (5,) -> st_out (6,) (the state and a checksum) and timing
+// (2,) int64: clock64 cycles and %globaltimer nanoseconds of the loop.
+int sdr_pll_chain_floor(const float* x, int n, const float* st_in,
+                        float* st_out, long long* timing, float kp, float ki,
+                        float w0, float wmod, float scale, float adj,
+                        int exact, int wrap, int lag, void* stream) {
+  if (n < 1 || n > kFloorN) return (int)cudaErrorInvalidValue;
   const LoopParams p{kp, ki, w0, wmod, scale, adj};
-  dim3 grid((unsigned)((channels + kLoopThreads - 1) / kLoopThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    launch_loop<true>(exact, wrap, lag, grid, s, x, st_in, nco, st_out,
-                      channels, n, p);
-  else
-    launch_loop<false>(exact, wrap, lag, grid, s, x, st_in, nco, st_out,
-                       channels, n, p);
+#define SDR_FLOOR(E, W, L) \
+  chain_floor_kernel<E, W, L><<<1, 1, 0, s>>>(x, n, st_in, st_out, timing, p)
+  if (exact && wrap && lag) SDR_FLOOR(true, true, true);
+  else if (!exact && wrap && lag) SDR_FLOOR(false, true, true);
+  else if (exact && !wrap && !lag) SDR_FLOOR(true, false, false);
+  else return (int)cudaErrorInvalidValue;
+#undef SDR_FLOOR
+  return (int)cudaGetLastError();
+}
+
+// differ (1,) uint64, zeroed by the caller: see sincos_check_kernel.
+int sdr_sincos_check(unsigned long long* differ, void* stream) {
+  sincos_check_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      differ);
   return (int)cudaGetLastError();
 }
 

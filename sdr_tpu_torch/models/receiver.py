@@ -518,6 +518,20 @@ class Receiver:
                     params=((pilot_freq, fs, 2.0, adj),
                             (rds_freq, fs, 0.5, 0.0)),
                     window=self.pll_window, out_dtype=odt))
+        elif self.stereo and self.rds and (
+                self.compat_pll or self.pll_impl in ("scan", "pallas")):
+            # both sequential loops in one launch, side by side on the card
+            from sdr_tpu_torch.ops.cuda.pll_kernel import pll_loop_multi
+            pallas = self.pll_impl == "pallas" and not self.compat_pll
+            (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
+                pll_loop_multi(
+                    (pilot, rds_carrier_in), (st.pll, rs.pll),
+                    params=((pilot_freq, fs, 2.0, adj, 0.01),
+                            (rds_freq, fs, 0.5, 0.0,
+                             self.rds_pll_bandwidth)),
+                    wrap_phase=pallas or self.pll_wrap_phase,
+                    lag_correction=not self.compat_pll,
+                    exact=not pallas))
         else:
             if self.stereo:
                 c["nco_s"], c["pll_s"] = self._pll(

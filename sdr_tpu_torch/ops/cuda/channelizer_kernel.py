@@ -35,7 +35,7 @@ from sdr_tpu_torch.ops.channelizer import (_advance, _modulated_bank,
 from sdr_tpu_torch.ops.cuda import build
 
 EXT = 128          # carried columns of raw context (covers t_cols)
-BLOCK_STATIONS = 16  # stations of one kernel block (csrc/channelizer.cu)
+BLOCK_STATIONS = 32  # stations of one kernel block (csrc/channelizer.cu)
 
 
 class PallasMFB:
@@ -95,15 +95,8 @@ class PallasMFB:
         # the bank as the product sees it: rounded to the compute dtype
         bm = torch.from_numpy(self._bm).to(compute_dtype).to(torch.float32)
         self._bm_dev = bm.to(self.device)
-        # the kernel's layout: per group of BLOCK_STATIONS stations, row
-        # by row, (real, imag) of each station side by side
-        groups = -(-self.kp // BLOCK_STATIONS)
-        packed = torch.zeros((groups * BLOCK_STATIONS, 2, rows))
-        packed[:self.kp, 0] = bm[:self.kp]
-        packed[:self.kp, 1] = bm[self.kp:]
-        self._bm_packed = packed.reshape(groups, BLOCK_STATIONS, 2, rows
-                                         ).permute(0, 3, 1, 2).contiguous(
-                                         ).to(self.device)
+        self._bm_packed = pack_bank(bm, self.kp, compute_dtype).to(
+            self.device)
         self._dev_cache: dict = {}
 
     def init_state(self) -> dict[str, torch.Tensor]:
@@ -213,6 +206,44 @@ class PallasMFB:
             stream))
         build.LAUNCHES["mfb"] += 1
         return i_out, q_out
+
+
+def pack_bank(bm: torch.Tensor, kp: int,
+              compute_dtype: torch.dtype) -> torch.Tensor:
+    """The (2Kp, rows) bank (real rows over imag rows, already rounded to
+    the compute dtype) in the kernel's layout, stations zero-padded to
+    groups of BLOCK_STATIONS.  float32 engine: (groups, rows, 32, 2),
+    (real, imag) of each station side by side.  bf16 engine: the A
+    fragments of mma.m16n8k16, (groups, 4 m-tiles, k-steps, 32 lanes, 8):
+    m-tile m holds stations 8m..8m+7 with their real rows at rows 0-7 and
+    their imaginary rows at rows 8-15, and lane (g, t) = (lane // 4,
+    lane % 4) holds rows (g, g + 8) x columns (2t, 2t + 1) and (2t + 8,
+    2t + 9) of each 16-column k-step, in the order a0 a1 a2 a3."""
+    rows = bm.shape[1]
+    groups = -(-kp // BLOCK_STATIONS)
+    s = groups * BLOCK_STATIONS
+    if compute_dtype != torch.bfloat16:
+        packed = torch.zeros((s, 2, rows))
+        packed[:kp, 0] = bm[:kp]
+        packed[:kp, 1] = bm[kp:]
+        return packed.reshape(groups, BLOCK_STATIONS, 2, rows).permute(
+            0, 3, 1, 2).contiguous()
+    ks = -(-rows // 16)
+    re = torch.zeros((s, ks * 16))
+    im = torch.zeros((s, ks * 16))
+    re[:kp, :rows] = bm[:kp]
+    im[:kp, :rows] = bm[kp:]
+    # (groups, m-tile, k-step, row g within the m-tile, column)
+    re, im = (t.reshape(groups, 4, 8, ks, 16).permute(0, 1, 3, 2, 4)
+              for t in (re, im))
+    lane = torch.arange(32)
+    g, col = lane // 4, 2 * (lane % 4)
+    # a0 = re (2t, 2t+1), a1 = im (2t, 2t+1), a2 = re (2t+8, +9), a3 = im
+    vals = []
+    for dc in (0, 8):
+        for t in (re, im):
+            vals += [t[..., g, col + dc], t[..., g, col + dc + 1]]
+    return torch.stack(vals, dim=-1).to(torch.bfloat16).contiguous()
 
 
 def _largest_tile_at_most(n: int, cap: int) -> int:

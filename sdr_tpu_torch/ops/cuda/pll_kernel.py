@@ -2,7 +2,8 @@
 frozen-feedback PLL for one or several instances.
 
 Port of sdr_tpu/ops/pallas/pll_kernel.py: `_atan2_poly` (`atan2_poly`),
-`pll_pallas` (kernel `_pll_kernel`), `pll_pallas_chunked`
+`pll_pallas` (kernel `_pll_kernel`; `pll_loop_multi` runs several such
+loops in one launch), `pll_pallas_chunked`
 (`_pll_chunked_kernel`) and `pll_pallas_chunked_multi`
 (`_pll_chunked_kernel_multi`).  Both kernels are in csrc/pll.cu.  Each
 takes an `exact` flag, libm atan2f in place of the polynomial, so that it
@@ -17,7 +18,8 @@ math, and the port copies neither (there is no channel limit here).
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (`pll_kernel_reference`, `pll_chunked_kernel_reference`);
 there is no fallback from one to the other.  Each launch adds one to
-`build.LAUNCHES["pll"]` (the sequential loop), `["pll_chunked"]` (the
+`build.LAUNCHES["pll"]` (the sequential loop, one launch for all its
+instances), `["pll_chunked"]` (the
 chunked loop, one instance) or `["pll_chunked_multi"]` (several).
 """
 
@@ -32,7 +34,7 @@ from sdr_tpu_torch.ops.cuda import build
 from sdr_tpu_torch.ops.pll import (PLLState, _largest_divisor_at_most,
                                    _pll_plain, loop_params, state_rows)
 
-MAX_GROUPS = 4   # instances of one chunked launch (csrc/pll.cu kMaxGroups)
+MAX_GROUPS = 4   # instances of one launch (csrc/pll.cu kMaxLoops, kMaxGroups)
 _PI = float(np.float32(np.pi))
 _PI_2 = float(np.float32(np.pi / 2))
 
@@ -73,9 +75,11 @@ def pll_loop(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,
     (nco (..., n) float32, new_state).  exact: libm atan2 (the scan
     engine) or the polynomial (the reference's Pallas kernel)."""
     if x.is_cuda:
-        return _loop_kernel(x, state, loop_params(
-            freq, fs, nco_scale, phase_adjust, norm_bandwidth),
+        (nco,), (new,) = _loop_kernel(
+            (x,), (state,), ((freq, fs, nco_scale, phase_adjust,
+                              norm_bandwidth),),
             wrap_phase, lag_correction, exact)
+        return nco, new
     if x.device.type != "cpu":
         raise ValueError(f"no PLL kernel for device {x.device}")
     return pll_kernel_reference(
@@ -95,27 +99,117 @@ def pll_pallas(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,
                     exact=False)
 
 
-def _loop_kernel(x, state, prm, wrap_phase, lag_correction, exact):
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("x must be float32 or bfloat16")
-    if any(s.device != x.device for s in state):
-        raise ValueError("the state must be on x's device")
-    lead, n, xr, st = state_rows(x, state)
-    if tuple(st.shape[1:]) != (xr.shape[0],):
-        raise ValueError("state leaves must have x's leading shape")
-    xr = xr.contiguous()
-    if xr.data_ptr() % 16:        # the kernel's vector loads need it
-        xr = xr.clone()
-    channels = xr.shape[0]
-    nco = torch.empty((channels, n), dtype=torch.float32, device=x.device)
-    out = torch.empty((5, channels), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(build.library().sdr_pll(
-        xr.data_ptr(), int(x.dtype == torch.bfloat16), channels, n,
-        st.data_ptr(), nco.data_ptr(), out.data_ptr(), *prm,
-        int(exact), int(wrap_phase), int(lag_correction), stream))
+def pll_loop_multi(xs, states, *, params, wrap_phase: bool = True,
+                   lag_correction: bool = True, exact: bool = True):
+    """G sequential loops in one launch over inputs (..., n), float32 or
+    bfloat16, with a common n: params holds one (freq, fs,
+    nco_scale, phase_adjust, norm_bandwidth) per instance.  Returns
+    (ncos, new_states), tuples in input order; each instance equals its
+    own `pll_loop` bit for bit.  The receiver runs its pilot and RDS loops
+    through it, so that they run side by side on the card.  On the CPU the
+    plain loop runs once per instance."""
+    if not len(xs) == len(states) == len(params) >= 1:
+        raise ValueError("xs, states and params must have one entry each")
+    n = xs[0].shape[-1]
+    if any(x.shape[-1] != n for x in xs):
+        raise ValueError("inputs must share n")
+    if xs[0].is_cuda:
+        return _loop_kernel(xs, states, params, wrap_phase, lag_correction,
+                            exact)
+    if xs[0].device.type != "cpu":
+        raise ValueError(f"no PLL kernel for device {xs[0].device}")
+    outs = [pll_kernel_reference(
+        x, st, freq=p[0], fs=p[1], nco_scale=p[2], phase_adjust=p[3],
+        norm_bandwidth=p[4], wrap_phase=wrap_phase,
+        lag_correction=lag_correction, exact=exact)
+        for x, st, p in zip(xs, states, params)]
+    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+
+
+def _instances(xs, states, params, out_rows: int):
+    """The launch arguments of G loop instances: checks the inputs, makes
+    each row block contiguous and allocates its nco and its (out_rows, C)
+    state output.  Mixed float32 and bfloat16 inputs run as float32: the
+    kernels widen bf16 exactly, so that gives their bits.  Returns (x_bf16,
+    n, ptrs (4 per instance), channels, params (G, 6) float32, outs of
+    (lead, nco, state rows), keep: the copies whose addresses are taken)."""
+    dev = xs[0].device
+    if any(x.dtype not in (torch.float32, torch.bfloat16) for x in xs):
+        raise TypeError("inputs must be float32 or bfloat16")
+    if len({x.dtype for x in xs}) > 1:
+        xs = [x.float() for x in xs]
+    if len(xs) > MAX_GROUPS:
+        raise ValueError(f"at most {MAX_GROUPS} instances per launch")
+    if any(t.device != dev for x, s in zip(xs, states) for t in (x, *s)):
+        raise ValueError("all inputs must be on one device")
+    ptrs, channels, keep, outs = [], [], [], []
+    for x, state in zip(xs, states):
+        lead, n, xr, st = state_rows(x, state)
+        if tuple(st.shape[1:]) != (xr.shape[0],):
+            raise ValueError("state leaves must have x's leading shape")
+        xr = xr.contiguous()
+        c = xr.shape[0]
+        nco = torch.empty((c, n), dtype=torch.float32, device=dev)
+        out = torch.empty((out_rows, c), dtype=torch.float32, device=dev)
+        ptrs += [xr.data_ptr(), st.data_ptr(), nco.data_ptr(),
+                 out.data_ptr()]
+        channels.append(c)
+        keep += [xr, st]
+        outs.append((lead, nco, out))
+    g = len(xs)
+    prm = np.asarray([loop_params(*p) for p in params], np.float32)
+    return (int(xs[0].dtype == torch.bfloat16), n,
+            (ctypes.c_longlong * (4 * g))(*ptrs), (ctypes.c_int * g)(*channels),
+            prm, outs, keep)
+
+
+def _loop_kernel(xs, states, params, wrap_phase, lag_correction, exact):
+    x_bf16, n, ptrs, channels, prm, outs, _keep = _instances(
+        xs, states, params, 5)
+    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
+    build.check(build.library().sdr_pll_multi(
+        len(xs), ptrs, channels, prm.ctypes.data, x_bf16, n, int(exact),
+        int(wrap_phase), int(lag_correction), stream))
     build.LAUNCHES["pll"] += 1
-    return nco.reshape(*lead, n), _state_out(out, lead)
+    return (tuple(nco.reshape(*lead, n) for lead, nco, _ in outs),
+            tuple(_state_out(out, lead) for lead, _, out in outs))
+
+
+def chain_floor(x: torch.Tensor, state: PLLState, *, params,
+                wrap_phase: bool = True, lag_correction: bool = True,
+                exact: bool = True):
+    """The sequential loop's chain floor on the card: one thread runs the
+    recurrence over x (n,) float32, n <= 8192, staged in shared memory,
+    with no NCO, no barriers and no stores in the timed loop (csrc/pll.cu
+    `chain_floor_kernel`).  Modes: exact wrap with lag, polynomial wrap
+    with lag, exact counter without lag.  Returns (clock64 cycles a
+    sample, %globaltimer nanoseconds a sample at the clock the loop ran,
+    the final state as a (5,) float32 tensor: integ, acc, fbi, fbq,
+    trig).  A measurement, not a path of the receiver: not counted in
+    build.LAUNCHES."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError("x must be a 1-d float32 CUDA tensor")
+    n = x.shape[0]
+    st = torch.stack([s.reshape(()).float() for s in state]).to(x.device)
+    out = torch.empty(6, dtype=torch.float32, device=x.device)
+    timing = torch.zeros(2, dtype=torch.int64, device=x.device)
+    x = x.contiguous()
+    build.check(build.library().sdr_pll_chain_floor(
+        x.data_ptr(), n, st.data_ptr(), out.data_ptr(), timing.data_ptr(),
+        *loop_params(*params), int(exact), int(wrap_phase),
+        int(lag_correction), torch.cuda.current_stream(x.device).cuda_stream))
+    cycles, ns = timing.tolist()
+    return cycles / n, ns / n, out[:5]
+
+
+def sincos_differences(device="cuda") -> int:
+    """The number of finite float32 arguments where sincosf differs in
+    any bit from (sinf, cosf) on the card: 0 allows the sequential loop's
+    one sincosf for its feedback pair (csrc/pll.cu `chain_step`)."""
+    differ = torch.zeros(1, dtype=torch.int64, device=device)
+    build.check(build.library().sdr_sincos_check(
+        differ.data_ptr(), torch.cuda.current_stream(device).cuda_stream))
+    return int(differ.item())
 
 
 # ---------------------------------------------------------- the chunked loop
@@ -169,40 +263,17 @@ def pll_pallas_chunked_multi(xs, states, *, params,
 
 
 def _chunked_kernel(xs, states, params, chunk, lag_correction, exact):
-    dtype, dev = xs[0].dtype, xs[0].device
-    if dtype not in (torch.float32, torch.bfloat16) or any(
-            x.dtype != dtype for x in xs):
-        raise TypeError("inputs must share a dtype, float32 or bfloat16")
-    if len(xs) > MAX_GROUPS:
-        raise ValueError(f"at most {MAX_GROUPS} instances per launch")
-    if any(t.device != dev for x, s in zip(xs, states) for t in (x, *s)):
-        raise ValueError("all inputs must be on one device")
-    # `keep` holds the contiguous copies whose addresses the launch takes
-    ptrs, channels, keep, outs = [], [], [], []
-    for x, state in zip(xs, states):
-        lead, n, xr, st = state_rows(x, state)
-        if tuple(st.shape[1:]) != (xr.shape[0],):
-            raise ValueError("state leaves must have x's leading shape")
-        xr = xr.contiguous()
-        c = xr.shape[0]
-        nco = torch.empty((c, n), dtype=torch.float32, device=dev)
-        out = torch.empty((4, c), dtype=torch.float32, device=dev)
-        ptrs += [xr.data_ptr(), st.data_ptr(), nco.data_ptr(),
-                 out.data_ptr()]
-        channels.append(c)
-        keep += [xr, st]
-        outs.append((lead, nco, out, state.trig_offset))
+    x_bf16, n, ptrs, channels, prm, outs, _keep = _instances(
+        xs, states, params, 4)
     g = len(xs)
-    prm = np.asarray([loop_params(*p) for p in params], np.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
     build.check(build.library().sdr_pll_chunked(
-        g, (ctypes.c_longlong * (4 * g))(*ptrs), (ctypes.c_int * g)(*channels),
-        prm.ctypes.data, int(dtype == torch.bfloat16), n, chunk, int(exact),
+        g, ptrs, channels, prm.ctypes.data, x_bf16, n, chunk, int(exact),
         int(lag_correction), stream))
     build.LAUNCHES["pll_chunked" if g == 1 else "pll_chunked_multi"] += 1
-    return (tuple(nco.reshape(*lead, n) for lead, nco, _, _ in outs),
-            tuple(_state_out(out, lead, trig)
-                  for lead, _, out, trig in outs))
+    return (tuple(nco.reshape(*lead, n) for lead, nco, _ in outs),
+            tuple(_state_out(out, lead, state.trig_offset)
+                  for (lead, _, out), state in zip(outs, states)))
 
 
 # --------------------------------------------------------------- plain torch

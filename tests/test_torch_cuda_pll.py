@@ -61,9 +61,8 @@ def test_sequential_loop_equals_plain(dev, n, exact, wrap, lag, dtype):
     """Every operation rounds as in the plain loop, and both call libm or
     the same polynomial: the kernel equals it bit for bit.  Rows of a
     length that is not a multiple of 4 start off a vector boundary, and
-    the kernel steps through their first and last samples one at a time.
-    The input is a contiguous view 1 element past the start of its
-    allocation, which the wrapper copies to an aligned one."""
+    n = 3 is shorter than one ring tile.  The input is a contiguous view 1
+    element past the start of its allocation."""
     c = 37
     flat = tones(1, c * n + 1, 19e3, dev).to(dtype).reshape(-1)
     x = flat[1:].reshape(c, n)
@@ -74,6 +73,49 @@ def test_sequential_loop_equals_plain(dev, n, exact, wrap, lag, dtype):
     got = K.pll_loop(x, pll_init((c,), dev), **kw)
     assert LAUNCHES["pll"] == before + 1
     same(got, K.pll_kernel_reference(x, pll_init((c,), dev), **kw), 0.0)
+
+
+@pytest.mark.parametrize("n", [2048, 2047, 33])
+@pytest.mark.parametrize("exact,wrap,lag", [(True, True, True),
+                                            (False, True, True),
+                                            (True, False, False),
+                                            (True, True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_joint_launch_equals_single_launches(dev, n, exact, wrap, lag,
+                                             dtype):
+    """pll_loop_multi: two instances with different parameters and channel
+    counts (the pilot loop, 37 channels; the RDS carrier loop, 20) in one
+    launch equal their own single launches bit for bit, nco and state, for
+    n on and off a vector boundary and n = 33, one ring tile and a sample."""
+    xs = (tones(37, n, 19e3, dev).to(dtype),
+          tones(20, n, 114e3, dev, seed=1).to(dtype))
+    sts = (pll_init((37,), dev), pll_init((20,), dev))
+    params = ((19e3, FS, 2.0, 0.2, 0.01), (114e3, FS, 0.5, 0.0, 0.003))
+    flags = dict(wrap_phase=wrap, lag_correction=lag, exact=exact)
+    before = LAUNCHES["pll"]
+    ncos, news = K.pll_loop_multi(xs, sts, params=params, **flags)
+    assert LAUNCHES["pll"] == before + 1
+    for x, st, (freq, fs, scale, adj, bw), nco, new in zip(
+            xs, sts, params, ncos, news):
+        want, wst = K.pll_loop(x, st, freq=freq, fs=fs, nco_scale=scale,
+                               phase_adjust=adj, norm_bandwidth=bw, **flags)
+        torch.cuda.synchronize()
+        assert torch.equal(nco, want)
+        for a, b in zip(new, wst):
+            assert torch.equal(a, b)
+
+
+def test_chain_floor_runs_the_loop(dev):
+    """The chain-floor microbenchmark runs the same recurrence: its final
+    state equals the plain loop's bit for bit, and it counts cycles and
+    nanoseconds."""
+    x = tones(1, 4096, 19e3, dev)[0]
+    st = pll_init((), dev)
+    params = (19e3, FS, 2.0, 0.0, 0.01)
+    cps, nps, fin = K.chain_floor(x, st, params=params)
+    _, want = K.pll_kernel_reference(x, st, freq=19e3, fs=FS, nco_scale=2.0)
+    assert cps > 0 and nps > 0
+    assert torch.equal(fin, torch.stack(list(want)))
 
 
 @pytest.mark.parametrize("chunk", [16, 32, 64])
@@ -132,10 +174,13 @@ def test_default_profile_receiver_card_vs_cpu(dev):
     cap = tx.synthesize_capture(cfg, seconds=0.3,
                                 left=tx.tone(cfg.rf_fs, 1000.0, n),
                                 right=tx.tone(cfg.rf_fs, 2500.0, n))
+    rx = Receiver(0, stereo=True, rds=True, device=dev)
     before = LAUNCHES["pll"]
-    gout, _ = Receiver(0, stereo=True, rds=True, device=dev).run(
-        torch.from_numpy(cap), blocks_per_step=4)
-    assert LAUNCHES["pll"] > before
+    gout, _ = rx.run(torch.from_numpy(cap), blocks_per_step=4)
+    # one joint launch of both loops a step
+    bs = rx.block_size_u8(4)
+    steps = len(cap) // bs + int(len(cap) % bs >= rx.block_align_u8())
+    assert LAUNCHES["pll"] == before + steps
     wout, _ = Receiver(0, stereo=True, rds=True, device="cpu").run(
         torch.from_numpy(cap), blocks_per_step=4)
     for k in ("left", "right", "rds_soft"):
