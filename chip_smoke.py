@@ -6,13 +6,15 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from csrc/ (logging registers, spills and the
-tensor-core instructions of the channelizer's bf16 engine), holds each
-kernel against its plain PyTorch version on the card (phases 2, 2b, 2c
-and 2d: the front end, the feedforward stereo + RDS kernels, the IF
-bank's four-stream variant and the carrier loops with the sequential
-loop's chain floor and its joint launch against two single ones, then
-the wideband channelizer), drives the receivers through their entry
-points, and checks the audio and the RDS decode.
+tensor-core instructions of the front end's integer engines, the IF
+bank's bf16 engine and the channelizer's bf16 engine: a kernel without
+them fails), holds each kernel against its plain PyTorch version on the
+card (phases 2, 2b, 2c and 2d: the front end, the feedforward stereo +
+RDS kernels, the IF bank's four-stream variant and the carrier loops with
+the chain floors of the sequential and the chunked loops and the
+sequential loop's joint launch against two single ones, then the
+wideband channelizer), drives the receivers through their entry points,
+and checks the audio and the RDS decode.
 Each path runs with the launch counts set to 0 and names the kernels it
 must launch and those it must not:
   - mono: the CLI with --fast and --exact-fast, 128-station steps;
@@ -34,10 +36,11 @@ must launch and those it must not:
 Every phase raises on failure, so a failure exits non-zero and prints no
 result.  The last line of stdout is {"ok": true, "device": {...}}; the
 line before it lists every kernel with its launches on the path that runs
-it, its error against the plain version, both times, its bound on the
-card from this run's shapes (`roofline`) and, where one PyTorch call
-computes the same function, that call's time (phase 2c's entries name
-the lengths compared).
+it (and, apart, in that path's full-width steps: 128 stations, 64 on the
+wideband paths), its error against the plain version, both times, its
+bound on the card from this run's shapes (`roofline`) and, where one
+PyTorch call computes the same function, that call's time (phase 2c's
+entries name the lengths compared).
 Imports nothing of jax or sdr_tpu.  It also prints torch.profiler
 breakdowns of the 128-station and wideband steps (device time by kernel,
 busy time, host enqueue time per step), each trace's kernel events held
@@ -119,6 +122,22 @@ KERNEL_PATH = {"frontend_demod": "mono", "frontend": "mono",
                "pll": "stereo+RDS default",
                "pll_chunked": "loop engines, one station",
                "pll_chunked_multi": "stereo+RDS joint", "mfb": "wideband"}
+# path -> {kernel: launches in that path's full-width steps}: the 128-
+# station (64-station wideband) Receiver steps, apart from the CLI's and
+# the one-station runs; the kernels line's `full_width_launches`
+FULL_WIDTH: dict = {}
+_RUNNING = [None]   # the path being counted
+
+
+def count_full_width(before: dict) -> None:
+    """Add the launches since `before` to the running path's full-width
+    counts."""
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    counts = FULL_WIDTH.setdefault(_RUNNING[0], {})
+    for k, v in LAUNCHES.items():
+        counts[k] = counts.get(k, 0) + v - before[k]
+
+
 # the wideband configuration (bench.py:171-204, BASELINE.md:219-229): one
 # 9.6 MS/s u8 antenna stream, 64 stations across +-4 MHz
 FS_WIDE = 9.6e6
@@ -202,28 +221,41 @@ def mfb_work(pl, n_out: int, ingest: str, compute: str,
     return nbytes, ops
 
 
-def tensor_core_sass(lib: Path) -> str:
-    """The tensor-core instructions (HMMA) in the SASS of B7's bf16 engine
-    (`mfb_tc_kernel`, cuobjdump); raises where there are none."""
+# kernels that must run on the tensor cores -> their SASS instruction
+TENSOR_CORE_KERNELS = {"mfb_tc_kernel": "HMMA",          # B7 bf16
+                       "frontend_mma_kernel": "IMMA",    # B1/B2 int engines
+                       "ifbank_mma_kernel": "HMMA"}      # B3/B6 bf16
+
+
+def tensor_core_sass(lib: Path) -> None:
+    """Logs the tensor-core instructions in the SASS of each kernel of
+    TENSOR_CORE_KERNELS (cuobjdump); raises where a kernel has none of its
+    kind."""
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / \
         "bin" / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts, fns, fn = {}, set(), None
+    counts = {k: {} for k in TENSOR_CORE_KERNELS}
+    fns = {k: set() for k in TENSOR_CORE_KERNELS}
+    fn = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-        elif fn and "mfb_tc_kernel" in fn:
-            m = re.search(r"\b(HMMA\.\S+)", line)
-            if m:
-                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
-                fns.add(fn)
-    if not counts:
-        raise AssertionError("no HMMA instruction in mfb_tc_kernel's SASS")
-    return (f"cuobjdump: mfb_tc_kernel ({len(fns)} instances) holds "
-            + ", ".join(f"{n} {op}" for op, n in sorted(counts.items())))
+            continue
+        for kernel, op in TENSOR_CORE_KERNELS.items():
+            if fn and kernel in fn:
+                m = re.search(rf"\b({op}\.\S+)", line)
+                if m:
+                    c = counts[kernel]
+                    c[m.group(1)] = c.get(m.group(1), 0) + 1
+                    fns[kernel].add(fn)
+    for kernel, op in TENSOR_CORE_KERNELS.items():
+        if not counts[kernel]:
+            raise AssertionError(f"no {op} instruction in {kernel}'s SASS")
+        log(f"  cuobjdump: {kernel} ({len(fns[kernel])} instances) holds "
+            + ", ".join(f"{n} {o}" for o, n in sorted(counts[kernel].items())))
 
 
 def card_info() -> str:
@@ -810,6 +842,37 @@ def check_loop_kernels(blocks, device, reps: int = 5) -> dict:
         if dtype == torch.float32:     # the joint path's streams
             results["pll_chunked_multi"] = (err, ms, plain_ms, n, n)
         del got, want
+    # B9's and B10's chain floors: one warp per instance runs only the
+    # per-chunk chain over station 0's first 4096 samples in shared memory;
+    # its state equals the chunked kernel's bit for bit.  The ms at n are
+    # from the floor kernel's own %globaltimer.
+    fl = 4096
+    x_p = pilot[0, :fl].contiguous().float()
+    x_r = carrier[0, :fl].contiguous().float()
+    for name, key, xs, params, chunk, exact in (
+            ("exact16", "pll_chunked", (x_p,), (pilot_params,), 16, True),
+            ("poly32", "pll_chunked", (x_p,), (pilot_params,), 32, False),
+            ("joint32", "pll_chunked_multi", (x_p, x_r),
+             (pilot_params, carrier_params), 32, False)):
+        cps, nps, fin = K.chunk_floor(
+            xs, tuple(pll_init((), device) for _ in xs), params=params,
+            chunk=chunk, exact=exact)
+        _, news = K.pll_chunked_loop(
+            tuple(x[None] for x in xs),
+            tuple(pll_init((1,), device) for _ in xs), params=params,
+            chunk=chunk, exact=exact)
+        for g, new in enumerate(news):
+            if not torch.equal(fin[g], torch.stack([v[0] for v in new[:4]])):
+                raise AssertionError(f"{key} chain floor/{name}: its state "
+                                     "differs from the kernel's")
+        floor_ms = n * nps / 1e6
+        extra = results.setdefault(f"{key}_extra", {})
+        extra[f"floor_{name}_cycles_per_sample"] = cps
+        extra[f"floor_{name}_ms"] = floor_ms
+        log(f"kernel {key} chain floor/{name}: {cps:.1f} cycles, {nps:.2f} "
+            f"ns a sample ({len(xs)} warp(s) over {fl} samples, clock64 and "
+            f"globaltimer; {cps / nps * 1e3:.0f} MHz while it ran), "
+            f"{floor_ms:.2f} ms for n={n}")
     del streams, pilot, carrier
     torch.cuda.empty_cache()
     return results
@@ -1187,15 +1250,18 @@ def expected_samples(rx, n: int, blocks_per_step: int) -> int:
 def run_real_size(blocks, device, steps: int = 5,
                   stations_checked: int = 4) -> dict:
     """Receiver at 128 stations x 5.12 MB per step with the input resident
-    on the device: IQ MS/s per profile from CUDA events, and one step's fm
-    held against the plain front end on a few stations."""
+    on the device: IQ MS/s per profile from CUDA events, one step's fm
+    held against the plain front end on a few stations, and the --fast
+    step's torch.profiler breakdown."""
     import torch
     from sdr_tpu_torch.models.receiver import Receiver
     from sdr_tpu_torch.ops.cuda.frontend_kernel import (
         frontend_demod_reference, frontend_reference)
     from sdr_tpu_torch.ops.demod import fm_arctan
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
     c, bs = blocks.shape[1], blocks.shape[2]
     rates = {}
+    launched = dict(LAUNCHES)
     for name, kw in REAL_PROFILES.items():
         rx = Receiver(MODE, emit_if=True, device=device, **kw)
         if rx.block_size_u8(BLOCKS_PER_STEP) != bs:
@@ -1235,8 +1301,11 @@ def run_real_size(blocks, device, steps: int = 5,
         rates[name] = (ms, rate)
         log(f"real size {name}: {c} stations x {bs} B/step, {ms:.3f} ms/step"
             f" = {rate:.1f} MS/s IQ (mean of {steps} steps, CUDA events)")
+        if name == "fast_int8":   # the headline cell's breakdown
+            state = profile_steps(rx, state, blocks, ms, label=f"mono {name}")
         del rx, state, st, st0, out
         torch.cuda.empty_cache()
+    count_full_width(launched)
     return rates
 
 
@@ -1270,6 +1339,7 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     cst = crx.init_state((k,)) if check_cpu else None
     n_if = bs // (2 * rx.cfg.rf_decim)
     rate_a = rx.cfg.audio_fs
+    full = dict(LAUNCHES)
     launched = LAUNCHES["pll"]
     for b, blk in enumerate(blocks):
         st, out = rx.step(st, blk)
@@ -1313,6 +1383,7 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     rate = c * bs / 2 / (ms * 1e-3) / 1e6
     log(f"real size {name}: {c} stations x {bs} B/step, {ms:.3f} ms/step"
         f" = {rate:.1f} MS/s IQ (mean of {steps} steps, CUDA events)")
+    count_full_width(full)
     state = profile_steps(rx, state, blocks, ms, steps=profile_n,
                           label=name)
     del rx, state, st, out
@@ -1439,6 +1510,7 @@ def run_real_size_wideband(wide_u8, device, name: str, compute: str,
     cst = cwrx.init_state() if check_cpu else None
     check_mfb_at_step(wrx.chan._pl, blocks[0], st[0], name, compute)
     cpu_s = 0.0
+    full = dict(LAUNCHES)
     launched = LAUNCHES["pll"]
     for b, blk in enumerate(blocks[:2]):
         st, out = wrx.step(st, blk)
@@ -1473,6 +1545,7 @@ def run_real_size_wideband(wide_u8, device, name: str, compute: str,
         f"wideband pairs/step, {ms:.3f} ms/step = {rate:.1f} wideband MS/s "
         f"(mean of {steps} steps, CUDA events); the CPU check took "
         f"{cpu_s:.1f} s")
+    count_full_width(full)
     state = profile_steps(wrx, state, blocks, ms, steps=profile_n,
                           label=name)
     del wrx, state, st, out, blocks
@@ -1523,8 +1596,9 @@ def run_loop_engines(device: str, seconds: float = 1.2) -> None:
 
 
 # kernel symbol in a profiler trace -> the LAUNCHES keys that launch it
-KERNEL_SYMBOLS = {"frontend_kernel": ("frontend_demod", "frontend"),
-                  "ifbank_kernel": ("ifbank_mix", "ifbank"),
+# (the front end's and the IF bank's float and tensor-core kernels)
+KERNEL_SYMBOLS = {"frontend_": ("frontend_demod", "frontend"),
+                  "ifbank_": ("ifbank_mix", "ifbank"),
                   "ffmix_kernel": ("ffmix",), "pair_kernel": ("audio_pair",),
                   "pll_loop_kernel": ("pll",),
                   "pll_chunked_kernel": ("pll_chunked", "pll_chunked_multi"),
@@ -1658,7 +1732,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
         "registers a thread, no spills unless listed above")
-    log("  " + tensor_core_sass(build.library_path()))
+    tensor_core_sass(build.library_path())
 
     from sdr_tpu_torch.models.receiver import Receiver
     bs = Receiver(MODE, **REAL_PROFILES["fast_int8"]).block_size_u8(
@@ -1714,6 +1788,7 @@ def main() -> int:
     def counted(path, fn):
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        _RUNNING[0] = path
         out = fn()
         launches[path] = dict(LAUNCHES)
         return out
@@ -1834,8 +1909,11 @@ def main() -> int:
             lambda: wideband_default_path(cli_paths, wide_u8))
     del wide_u8
     for path, (ran, skipped) in paths.items():
+        full = FULL_WIDTH.get(path, {})
         log(f"launches on the {path} path: " + ", ".join(
-            f"{k} {launches[path][k]}" for k in (*ran, *skipped)))
+            f"{k} {launches[path][k]}" for k in (*ran, *skipped))
+            + "; in its full-width steps: " + (", ".join(
+                f"{k} {full.get(k, 0)}" for k in ran) if full else "none"))
         for k in ran:
             if launches[path][k] == 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
@@ -1866,10 +1944,10 @@ def main() -> int:
                 # phase 2c's kernels: the lengths compared and timed
                 err, ms, plain_ms, n, plain_n = lkern[name]
                 extra = {"n": n, "plain_n": plain_n}
-                if name == "pll":
-                    # the chain floor beside the roofline bound, and the
-                    # joint launch of both loops beside two single ones
-                    extra.update(lkern["pll_extra"])
+                if f"{name}_extra" in lkern:
+                    # the chain floor beside the roofline bound (and B8's
+                    # joint launch of both loops beside two single ones)
+                    extra.update(lkern[f"{name}_extra"])
             elif name in skern:
                 # the stereo + RDS path's engines: bf16 IF bank and streams
                 err, ms, plain_ms, *lib = skern[name]
@@ -1885,6 +1963,8 @@ def main() -> int:
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[KERNEL_PATH[name]][name],
+                        "full_width_launches": FULL_WIDTH.get(
+                            KERNEL_PATH[name], {}).get(name, 0),
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms, **extra})

@@ -69,7 +69,10 @@
 //     __shfl_up_sync give ce and cumsum(ce); chunks longer than 32 loop
 //     over sub-blocks of 32 with the carried prefix.  With K = 16 a warp
 //     runs two channels.  The next sub-block's input is loaded before the
-//     current one's chain starts.
+//     current one's chain starts.  chunk_floor_kernel measures its floor:
+//     one warp a loop instance over x in shared memory, only the per-chunk
+//     dependent chain (prediction sin/cos, detector, the two scans, the PI
+//     update), timed by clock64 and %globaltimer like chain_floor_kernel.
 //   - The TPU's lane padding to 128, its time-major transpose and its
 //     lower-triangular matmuls do not carry over.
 
@@ -570,6 +573,77 @@ __global__ void __launch_bounds__(kChunkThreads)
   }
 }
 
+// The chunked loop's chain floor: warp g runs instance g's loop alone over
+// x_g (n <= kChunkFloorN samples, staged in shared memory), only the
+// per-chunk dependent chain of pll_chunked_kernel in its order of
+// operations: the prediction's sin/cos from the frozen feedback, the
+// detector, the two segmented scans and the PI update; no NCO and no
+// stores.  Lane 0 of each warp writes its clock64 cycles and %globaltimer
+// nanoseconds and its segment's final state (integ, acc, cos acc, sin acc),
+// the bits of pll_chunked_kernel's.
+constexpr int kChunkFloorN = 4096;
+constexpr int kChunkFloorG = 2;
+
+template <bool EXACT>
+__global__ void chunk_floor_kernel(const float* __restrict__ x, int n,
+                                   int chunk, int width,
+                                   const float* __restrict__ st_in,
+                                   float* __restrict__ st_out,
+                                   long long* __restrict__ timing,
+                                   LoopParams p0, LoopParams p1) {
+  __shared__ float xs[kChunkFloorG][kChunkFloorN];
+  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = lane; i < n; i += 32) xs[g][i] = x[(size_t)g * n + i];
+  __syncthreads();
+  const LoopParams p = g ? p1 : p0;
+  const int K = chunk, W = width;
+  const int seg_lane = lane & (W - 1);
+  float integ = st_in[2 * g], acc = st_in[2 * g + 1];
+  const long long g0 = global_ns();
+  const long long t0 = clock64();
+  for (int base = 0; base < n; base += K) {
+    const float wi = __fadd_rn(p.w0, integ);
+    float ce_c = 0.f, cs_c = 0.f, acc_last = 0.f;
+    for (int sb = 0; sb < K; sb += W) {
+      const int j = sb + seg_lane;
+      const bool act = j < K;
+      const float xv = act ? xs[g][base + j] : 0.f;
+      const float t = (float)j;
+      const float pred = __fadd_rn(acc, __fmul_rn(t, wi));
+      float e = detect<EXACT>(__fmul_rn(xv, -sinf(pred)),
+                              __fmul_rn(xv, cosf(pred)));
+      if (!act) e = 0.f;
+      const float ce = (sb == 0) ? seg_scan(e, seg_lane, W)
+                                 : __fadd_rn(seg_scan(e, seg_lane, W), ce_c);
+      const float cs = (sb == 0) ? seg_scan(ce, seg_lane, W)
+                                 : __fadd_rn(seg_scan(ce, seg_lane, W), cs_c);
+      const float jf = __fadd_rn(t, 1.f);
+      const float cs_integ =
+          __fadd_rn(__fmul_rn(jf, integ), __fmul_rn(p.ki, cs));
+      const float acc_j = __fadd_rn(
+          __fadd_rn(__fadd_rn(acc, __fmul_rn(jf, p.w0)), __fmul_rn(p.kp, ce)),
+          cs_integ);
+      const int last = min(W, K - sb) - 1;
+      ce_c = __shfl_sync(0xffffffffu, ce, last, W);
+      cs_c = __shfl_sync(0xffffffffu, cs, last, W);
+      acc_last = __shfl_sync(0xffffffffu, acc_j, last, W);
+    }
+    integ = __fadd_rn(integ, __fmul_rn(p.ki, ce_c));
+    acc = mod_floor<false>(acc_last, p.wmod);
+  }
+  asm volatile("mov.b32 %0, %0;" : "+f"(acc));
+  const long long t1 = clock64();
+  const long long g1 = global_ns();
+  if (lane == 0) {
+    st_out[4 * g] = integ;
+    st_out[4 * g + 1] = acc;
+    st_out[4 * g + 2] = cosf(acc);
+    st_out[4 * g + 3] = sinf(acc);
+    timing[2 * g] = t1 - t0;
+    timing[2 * g + 1] = g1 - g0;
+  }
+}
+
 template <bool BF16>
 void launch_chunked(bool exact, bool lag, dim3 grid, cudaStream_t s,
                     const ChunkArgs& a) {
@@ -634,6 +708,33 @@ int sdr_pll_chain_floor(const float* x, int n, const float* st_in,
   else if (exact && !wrap && !lag) SDR_FLOOR(true, false, false);
   else return (int)cudaErrorInvalidValue;
 #undef SDR_FLOOR
+  return (int)cudaGetLastError();
+}
+
+// The chunked loop's chain-floor microbenchmark: `groups` (1 or 2)
+// instances, one warp each, x (groups, n) float32 with n <= 4096 and a
+// multiple of chunk, st_in (groups, 2) (integ, acc) -> st_out (groups, 4)
+// and timing (groups, 2) int64: clock64 cycles and %globaltimer ns of each
+// warp's loop; params 6 floats per instance.
+int sdr_pll_chunk_floor(const float* x, int n, int groups, int chunk,
+                        const float* st_in, float* st_out, long long* timing,
+                        const float* params, int exact, void* stream) {
+  if (n < 1 || n > kChunkFloorN || groups < 1 || groups > kChunkFloorG ||
+      chunk < 1 || n % chunk != 0)
+    return (int)cudaErrorInvalidValue;
+  const float* q = params;
+  const float* r = params + 6 * (groups - 1);
+  const LoopParams p0{q[0], q[1], q[2], q[3], q[4], q[5]};
+  const LoopParams p1{r[0], r[1], r[2], r[3], r[4], r[5]};
+  int w = 1;
+  while (w < chunk && w < 32) w <<= 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exact)
+    chunk_floor_kernel<true><<<1, 32 * groups, 0, s>>>(
+        x, n, chunk, w, st_in, st_out, timing, p0, p1);
+  else
+    chunk_floor_kernel<false><<<1, 32 * groups, 0, s>>>(
+        x, n, chunk, w, st_in, st_out, timing, p0, p1);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,7 @@ SIGNATURES = {
     "sdr_pll_multi": (_I, [_I, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "sdr_pll_chain_floor": (_I, [_P, _I, _P, _P, _P, _F, _F, _F, _F, _F, _F,
                                  _I, _I, _I, _P]),
+    "sdr_pll_chunk_floor": (_I, [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
     "sdr_sincos_check": (_I, [_P, _P]),
     "sdr_pll_chunked": (_I, [_I, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "sdr_mfb": (_I, [_P, _P, _I, _LL, _LL, _I, _LL, _P, _I, _I, _I, _I, _P,

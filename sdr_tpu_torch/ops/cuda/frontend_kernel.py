@@ -6,13 +6,13 @@ csrc/frontend.cu and replace the Pallas kernels `_frontend_demod_kernel`
 (reached through `FusedFrontend.demod_call`) and `_frontend_kernel`
 (through `FusedFrontend.__call__`).  What bounds them on an H100: per IF
 sample 2D = 20 bytes of u8 in and 2-8 bytes out against 2 x 51
-multiply-adds, which on paper makes the float engines memory-bound and
-the integer engines balanced.  The kernels read each input byte once,
+multiply-adds, so the bytes.  The kernels read each input byte once and
 keep the decoded I/Q (and, with demod, the discriminator) out of device
-memory, and run the integer engines on dp4a (4 int8 multiply-adds per
-instruction); the TPU's banded matmul, its carried grid state and its
-8-channel padding do not carry over (see the source's header; times in
-PERF.md).
+memory.  The integer engines run the FIR on the tensor cores: a Toeplitz
+tile of the taps (`toeplitz_tile`, built here once per taps, D and
+engine and packed in the mma's A-fragment order by `pack_a_s8`) times 8
+columns of the raw stream; the float engines stay on the CUDA cores (see
+the source's header; times in PERF.md).
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (`frontend_reference`, `frontend_demod_reference`);
@@ -31,6 +31,93 @@ from sdr_tpu_torch.ops.demod import fm_discriminator
 
 FIX_BITS = 14  # fixed-point fraction bits of the int8x2 coefficient limbs
 ENGINES = {"f32": 0, "bf16": 1, "int8": 2, "int8x2": 3}
+# the integer engines' tensor-core FIR (csrc/frontend.cu kPhase, kReach,
+# kHaloWords, kMaxMmaDecim): a column of B starts MMA_PHASE samples more
+# than the taps' reach before its first output, on a 16-byte boundary of
+# the raw interleaved stream for any D
+MMA_ROWS = 16        # consecutive outputs of an A tile
+MMA_K = 32           # depth of one m16n8k32 step
+MMA_PHASE = 6
+HALO_WORDS = 64      # the combined integer taps at the head of the buffer
+MAX_MMA_DECIM = 16
+
+
+def mma_depth(decim: int, taps: int = 51) -> int:
+    """K of the Toeplitz tile: the samples that 16 consecutive outputs
+    reach (15 D + taps + MMA_PHASE), rounded up to a whole m16n8k32 step."""
+    need = (MMA_ROWS - 1) * decim + taps + MMA_PHASE
+    return -(-need // MMA_K) * MMA_K
+
+
+def toeplitz_tile(taps: np.ndarray, decim: int) -> np.ndarray:
+    """The (16, K) int64 Toeplitz tile of integer taps h[0..T-1]: row r,
+    column kk holds h[r D + T - 1 + MMA_PHASE - kk] (0 outside the taps),
+    so that tile @ x[m0 D - (T - 1 + MMA_PHASE) + kk] gives outputs
+    m0 .. m0 + 15 of y[m] = sum_k h[k] x[m D - k]."""
+    taps = np.asarray(taps, np.int64)
+    t = len(taps)
+    a = np.zeros((MMA_ROWS, mma_depth(decim, t)), np.int64)
+    for r in range(MMA_ROWS):
+        a[r, r * decim + MMA_PHASE:r * decim + MMA_PHASE + t] = taps[::-1]
+    return a
+
+
+# the A fragments' registers of m16n8k32 (row offset, and the tile columns
+# of lane t's k rows within a step): the mma's k rows 4t..4t+3 and
+# 16+4t..16+4t+3 are matched with samples 8t..8t+3 and 8t+4..8t+7 of the
+# step, which the kernel loads in one 16-byte load a lane (the products'
+# sum does not depend on the k order)
+_S8_REGS = ((0, 0), (8, 0), (0, 4), (8, 4))
+
+
+def pack_a_s8(tile: np.ndarray) -> np.ndarray:
+    """A (16, K) int8-valued tile in the A-fragment order of
+    mma.m16n8k32.s8, with the kernel's k order: (K/32, 32 lanes, 4) int32
+    words, lane (g, t) = (lane // 4, lane % 4) holding rows g and g + 8 of
+    tile columns 8t..8t+3 and 8t+4..8t+7 of each step, byte i of a word
+    the i-th column."""
+    rows, k = tile.shape
+    assert rows == MMA_ROWS and k % MMA_K == 0
+    assert np.abs(tile).max() <= 127
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    b = tile.astype(np.int8).view(np.uint8).astype(np.uint32)
+    out = np.zeros((k // MMA_K, 32, 4), np.uint32)
+    shift = (8 * np.arange(4)).astype(np.uint32)
+    for s in range(k // MMA_K):
+        for reg, (dr, dc) in enumerate(_S8_REGS):
+            cols = MMA_K * s + dc + 8 * t[:, None] + np.arange(4)
+            out[s, :, reg] = np.bitwise_or.reduce(
+                b[(g + dr)[:, None], cols] << shift, axis=1)
+    return out.view(np.int32)
+
+
+def unpack_a_s8(words: np.ndarray) -> np.ndarray:
+    """pack_a_s8's inverse: the (16, K) int64 tile."""
+    ks = words.shape[0]
+    b = words.view(np.uint32)[..., None] >> (8 * np.arange(4)).astype(
+        np.uint32)
+    b = (b & 0xFF).astype(np.uint8).view(np.int8).astype(np.int64)
+    tile = np.zeros((MMA_ROWS, ks * MMA_K), np.int64)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for s in range(ks):
+        for reg, (dr, dc) in enumerate(_S8_REGS):
+            cols = MMA_K * s + dc + 8 * t[:, None] + np.arange(4)
+            tile[(g + dr)[:, None], cols] = b[s, :, reg]
+    return tile
+
+
+def mma_tap_words(limbs: list[np.ndarray], combined: np.ndarray,
+                  decim: int) -> np.ndarray:
+    """The integer engines' tap buffer (int32 words), as csrc/frontend.cu
+    `mma_taps` reads it: HALO_WORDS combined integer taps (a warp's halo
+    output), then the packed A tile of each limb (int8: one; int8x2: the
+    high limbs, then the low)."""
+    halo = np.zeros(HALO_WORDS, np.int32)
+    halo[:len(combined)] = combined
+    return np.concatenate([halo] + [pack_a_s8(toeplitz_tile(l, decim))
+                                    .reshape(-1) for l in limbs])
 
 
 def _quantize_limbs(a: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:
@@ -98,14 +185,18 @@ class FusedFrontend:
         self.device = torch.device(device)
         self.tail_u8 = -(-(2 * (self.taps - 1)) // 128) * 128
         self.fix_scale = 0.0
+        self._mma_words = None      # integer engines: the tap buffer's
+        self._mma_dev = None        # words, and the buffer on the card
         if compute_dtype == "int8x2":
             hi, lo, self.fix_scale = _quantize_limbs(taps)
             self.int_taps = hi.astype(np.int64) * 128 + lo
             self._kernel_taps = np.concatenate([hi, lo])
+            limbs = [hi, lo]
         elif compute_dtype == "int8":
             a8, self.fix_scale = _quantize_int8(taps)
             self.int_taps = a8.astype(np.int64)
             self._kernel_taps = a8
+            limbs = [a8]
         else:
             # the exact /128 decode scale folded into the taps (a power of
             # two: bit-identical in f32, unchanged bf16 rounding)
@@ -118,6 +209,8 @@ class FusedFrontend:
                 self._kernel_taps = f.numpy()
             self.float_taps = f
         self.scale = float(np.float32(self.fix_scale / 128.0))
+        if compute_dtype in ("int8", "int8x2") and self.taps <= HALO_WORDS:
+            self._mma_words = mma_tap_words(limbs, self.int_taps, self.decim)
         # plain version: conv1d weight (cross-correlation, so taps reversed);
         # float64 holds the integer engines' sums exactly (|sum| < 2^28)
         if compute_dtype in ("int8", "int8x2"):
@@ -165,12 +258,24 @@ class FusedFrontend:
             raise ValueError("the CUDA front end takes contiguous tensors")
         if any(t.dtype != torch.float32 for t in floats):
             raise TypeError("prev_i / prev_q must be float32")
+        if self._mma_words is not None and self.decim > MAX_MMA_DECIM:
+            raise ValueError(f"the CUDA integer front end takes decim <= "
+                             f"{MAX_MMA_DECIM}, not {self.decim}")
         channels = int(np.prod(lead)) if lead else 1
         return lead, n, channels, n // (2 * self.decim)
 
+    def _taps_ptr(self, device) -> int:
+        """The kernel's taps: the host array (float engines) or the tap
+        buffer on the card (integer engines), copied there once."""
+        if self._mma_words is None:
+            return self._kernel_taps.ctypes.data
+        if self._mma_dev is None or self._mma_dev.device != device:
+            self._mma_dev = torch.from_numpy(self._mma_words).to(device)
+        return self._mma_dev.data_ptr()
+
     def _common_args(self, u8, tail, channels, n):
         return [u8.data_ptr(), tail.data_ptr(), channels, n, self.decim,
-                ENGINES[self.compute_dtype], self._kernel_taps.ctypes.data,
+                ENGINES[self.compute_dtype], self._taps_ptr(u8.device),
                 self.taps, self.scale]
 
     def _kernel(self, u8, tail):

@@ -13,8 +13,12 @@ kHz carrier:
     estimator window, the coherent sums Z = sum x e^{-j ramp} of the pilot
     and of the carrier that `ops.pll.pll_ff_params_from_sums` turns into
     carrier phases (the pilot and carrier stay inside the kernel).
-What bounds it on an H100 and what its design does about it: see the
-source's header; times in PERF.md.
+The bf16 compute engine runs its four FIRs on the tensor cores: the
+Toeplitz tile of each filter's taps (`toeplitz_tile_bf16`, built here and
+packed in the mma's A-fragment order by `pack_a_bf16`) times 8 columns of
+the staged window; the float32 engine stays on the CUDA cores.  What
+bounds it on an H100 and what its design does about it: see the source's
+header; times in PERF.md.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (`ifbank_reference`, `ifbank_mix_reference`); there is
@@ -36,6 +40,78 @@ KERNEL_WINDOW = 256
 # the reference TPU kernel's output tile (its default): a block of whole
 # tiles is what that kernel consumes, so the receiver aligns its steps to it
 OUT_TILE = 512
+# the bf16 engine's tensor-core FIRs (csrc/ifbank.cu kKs, kReach):
+# m16n8k16 tiles whose columns start MMA_PHASE samples more than the taps'
+# reach before their first output, on an 8-byte boundary
+MMA_ROWS = 16
+MMA_K = 16
+MMA_PHASE = 2
+
+
+def mma_depth(taps: int = KERNEL_TAPS) -> int:
+    """K of the bf16 Toeplitz tile: the 15 + taps + MMA_PHASE samples that
+    16 consecutive outputs reach, rounded up to a whole m16n8k16 step
+    (80)."""
+    return -(-(MMA_ROWS - 1 + taps + MMA_PHASE) // MMA_K) * MMA_K
+
+
+def toeplitz_tile_bf16(taps: np.ndarray) -> np.ndarray:
+    """The (16, K) float32 Toeplitz tile of taps h[0..T-1]: row r, column
+    kk holds h[r + T - 1 + MMA_PHASE - kk] (0 outside the taps), so that
+    tile @ x[m0 - (T - 1 + MMA_PHASE) + kk] gives outputs m0 .. m0 + 15 of
+    y[p] = sum_k h[k] x[p - k]."""
+    taps = np.asarray(taps, np.float32)
+    t = len(taps)
+    a = np.zeros((MMA_ROWS, mma_depth(t)), np.float32)
+    for r in range(MMA_ROWS):
+        a[r, r + MMA_PHASE:r + MMA_PHASE + t] = taps[::-1]
+    return a
+
+
+# the A fragments' registers of m16n8k16 (row offset, tile column offset):
+# the mma's k rows 2t, 2t+1 and 2t+8, 2t+9 are matched with samples 4t,
+# 4t+1 and 4t+2, 4t+3 of the step, which the kernel loads in one 8-byte
+# load a lane (the products' sum does not depend on the k order)
+_BF16_REGS = ((0, 0), (8, 0), (0, 2), (8, 2))
+
+
+def pack_a_bf16(tile: np.ndarray) -> np.ndarray:
+    """A (16, K) tile of bf16 values in the A-fragment order of
+    mma.m16n8k16.bf16, with the kernel's k order: (K/16, 32 lanes, 4)
+    int32 words, lane (g, t) = (lane // 4, lane % 4) holding rows g and
+    g + 8 of tile columns 4t, 4t+1 and 4t+2, 4t+3 of each step, the lower
+    column in the low half."""
+    rows, k = tile.shape
+    assert rows == MMA_ROWS and k % MMA_K == 0
+    bits = torch.from_numpy(np.ascontiguousarray(tile, np.float32)).to(
+        torch.bfloat16)
+    assert torch.equal(bits.float(), torch.from_numpy(tile.astype(
+        np.float32))), "the tile must hold bf16 values"
+    b = bits.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.zeros((k // MMA_K, 32, 4), np.uint32)
+    for s in range(k // MMA_K):
+        for reg, (dr, dc) in enumerate(_BF16_REGS):
+            col = MMA_K * s + dc + 4 * t
+            out[s, :, reg] = b[g + dr, col] | (b[g + dr, col + 1] << 16)
+    return out.view(np.int32)
+
+
+def unpack_a_bf16(words: np.ndarray) -> np.ndarray:
+    """pack_a_bf16's inverse: the (16, K) float32 tile."""
+    w = words.view(np.uint32)
+    halves = np.stack([w & 0xFFFF, w >> 16], axis=-1).astype(np.uint32)
+    vals = (halves << 16).view(np.float32)        # (ks, 32, 4, 2)
+    tile = np.zeros((MMA_ROWS, words.shape[0] * MMA_K), np.float32)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for s in range(words.shape[0]):
+        for reg, (dr, dc) in enumerate(_BF16_REGS):
+            col = MMA_K * s + dc + 4 * t
+            tile[g + dr, col] = vals[s, :, reg, 0]
+            tile[g + dr, col + 1] = vals[s, :, reg, 1]
+    return tile
 
 
 class FusedIFBank:
@@ -71,6 +147,14 @@ class FusedIFBank:
         t = torch.from_numpy(taps).to(compute_dtype).to(torch.float32)
         self._kernel_taps = np.ascontiguousarray(t.numpy())  # (4, taps)
         self._weight = t.flip(-1)[:, None, :].to(self.device)  # conv1d form
+        # the bf16 engine's kernel takes the four Toeplitz tiles, packed,
+        # from a buffer on the card (copied there at the first launch)
+        self._mma_words = None
+        self._mma_dev = None
+        if compute_dtype == torch.bfloat16:
+            self._mma_words = np.concatenate([
+                pack_a_bf16(toeplitz_tile_bf16(h)).reshape(-1)
+                for h in self._kernel_taps])
 
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> torch.Tensor:
         return torch.zeros(batch_shape + (CTX,), dtype=self.out_dtype,
@@ -100,7 +184,21 @@ class FusedIFBank:
         if tuple(tail.shape) != (*lead, CTX) or tail.device != fm.device:
             raise ValueError(f"tail must be {(*lead, CTX)} on {fm.device}")
         channels = int(np.prod(lead)) if lead else 1
-        return lead, n, channels, fm.contiguous(), tail.contiguous()
+        # the bf16 engine stages 16-byte chunks: copy a view that starts
+        # off a 16-byte boundary
+        fm, tail = (x.contiguous() if x.data_ptr() % 16 == 0
+                    else x.clone(memory_format=torch.contiguous_format)
+                    for x in (fm, tail))
+        return lead, n, channels, fm, tail
+
+    def _taps_ptr(self, device) -> int:
+        """The kernel's taps: the host float32 array (float32 engine) or
+        the packed tiles on the card (bf16 engine)."""
+        if self._mma_words is None:
+            return self._kernel_taps.ctypes.data
+        if self._mma_dev is None or self._mma_dev.device != device:
+            self._mma_dev = torch.from_numpy(self._mma_words).to(device)
+        return self._mma_dev.data_ptr()
 
     def _kernel(self, fm, tail):
         lead, n, channels, fm, tail = self._check(fm, tail)
@@ -110,7 +208,7 @@ class FusedIFBank:
         stream = torch.cuda.current_stream(fm.device).cuda_stream
         build.check(build.library().sdr_ifbank(
             fm.data_ptr(), tail.data_ptr(), int(fm.dtype == bf16), channels,
-            n, self._kernel_taps.ctypes.data, self.taps,
+            n, self._taps_ptr(fm.device), self.taps,
             int(self.compute_dtype == bf16), *(o.data_ptr() for o in outs),
             int(self.out_dtype == bf16), stream))
         build.LAUNCHES["ifbank"] += 1
@@ -180,7 +278,7 @@ class FusedIFBankMix(FusedIFBank):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(build.library().sdr_ifbank_mix(
             fm.data_ptr(), tail.data_ptr(), int(fm.dtype == bf16), channels,
-            n, self._kernel_taps.ctypes.data, self.taps,
+            n, self._taps_ptr(fm.device), self.taps,
             int(self.compute_dtype == bf16), cp.data_ptr(), sp.data_ptr(),
             cr.data_ptr(), sr.data_ptr(), chan.data_ptr(), rdsch.data_ptr(),
             int(self.out_dtype == bf16), z[0].data_ptr(), z[1].data_ptr(),

@@ -202,6 +202,41 @@ def chain_floor(x: torch.Tensor, state: PLLState, *, params,
     return cycles / n, ns / n, out[:5]
 
 
+def chunk_floor(xs, states, *, params, chunk: int, exact: bool = False):
+    """The chunked loop's chain floor on the card: one warp per instance
+    (1 or 2, the joint launch's) runs only the per-chunk dependent chain
+    (the prediction's sin/cos, the detector, the two segmented scans and
+    the PI update) over x (n,) float32, n <= 4096 and a multiple of
+    chunk, staged in shared memory (csrc/pll.cu `chunk_floor_kernel`).
+    Returns (clock64 cycles a sample, %globaltimer nanoseconds a sample,
+    each the slowest instance's, and the final states as a (G, 4) float32
+    tensor of integ, acc, cos acc, sin acc: the bits of pll_chunked_loop's
+    new state for the same input).  A measurement, not a path of the
+    receiver: not counted in build.LAUNCHES."""
+    g = len(xs)
+    if not 1 <= g == len(states) == len(params) <= 2:
+        raise ValueError("one or two instances, each with a state and "
+                         "params")
+    n = xs[0].shape[-1]
+    dev = xs[0].device
+    if any(not x.is_cuda or x.dtype != torch.float32 or x.shape != (n,)
+           for x in xs):
+        raise ValueError("xs must be 1-d float32 CUDA tensors of one n")
+    x = torch.stack(list(xs)).contiguous()
+    st = torch.stack([torch.stack([s.integrator.reshape(()).float(),
+                                   s.phase_acc.reshape(()).float()])
+                      for s in states]).to(dev)
+    out = torch.empty((g, 4), dtype=torch.float32, device=dev)
+    timing = torch.zeros((g, 2), dtype=torch.int64, device=dev)
+    prm = np.asarray([loop_params(*p) for p in params], np.float32)
+    build.check(build.library().sdr_pll_chunk_floor(
+        x.data_ptr(), n, g, chunk, st.data_ptr(), out.data_ptr(),
+        timing.data_ptr(), prm.ctypes.data, int(exact),
+        torch.cuda.current_stream(dev).cuda_stream))
+    cycles, ns = timing.max(dim=0).values.tolist()
+    return cycles / n, ns / n, out
+
+
 def sincos_differences(device="cuda") -> int:
     """The number of finite float32 arguments where sincosf differs in
     any bit from (sinf, cosf) on the card: 0 allows the sequential loop's

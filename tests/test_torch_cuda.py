@@ -30,15 +30,27 @@ def dev():
     return torch.device("cuda")
 
 
-def _blocks(stations, n, dev):
-    """Two consecutive (stations, n) u8 blocks of noisy FM captures."""
+def _blocks(stations, n, dev, misaligned=False):
+    """Two consecutive (stations, n) u8 blocks of noisy FM captures; with
+    misaligned, each a contiguous view one byte past a 16-byte boundary."""
     cfg = MODES[0]
     caps = [tx.synthesize_capture(cfg, seconds=(n + 100) / cfg.rf_fs,
                                   seed=s, noise_db=-20.0,
                                   mono=tx.tone(cfg.rf_fs, 900.0, n + 100))
             for s in range(stations)]
     x = torch.from_numpy(np.stack(caps)[:, :2 * n]).to(dev)
-    return [x[:, :n].contiguous(), x[:, n:].contiguous()]
+    blocks = [x[:, :n].contiguous(), x[:, n:].contiguous()]
+    if misaligned:
+        views = []
+        for b in blocks:
+            flat = torch.empty(stations * n + 1, dtype=torch.uint8,
+                               device=dev)
+            v = flat[1:].view(stations, n)
+            v.copy_(b)
+            assert v.is_contiguous() and v.data_ptr() % 16
+            views.append(v)
+        blocks = views
+    return blocks
 
 
 def _assert_agree(got, want, exact):
@@ -51,22 +63,33 @@ def _assert_agree(got, want, exact):
             assert (g - w).abs().max() <= 1e-5 * w.abs().max()
 
 
-# mode 0 (decim 10, 4-byte loads) and mode 3 (decim 9: an n that is not a
-# multiple of 4 takes the kernel's byte-load path)
-@pytest.mark.parametrize("mode,n", [(0, 2 * 10 * 1000), (3, 2 * 9 * 999)])
+# mode 0 (decim 10, 16-byte loads) and mode 3 (decim 9: an n that is not
+# a multiple of 16 takes the kernels' byte-load path); then the integer
+# engines' tensor-core shapes: D = 4 and 9, one station and 37, n_out not a
+# multiple of the 512-output tile and past one 16-tile span (a span
+# boundary inside the block), and a block that starts off a 16-byte
+# boundary
+SPAN = 512 * 16
+
+
+@pytest.mark.parametrize("mode,n,c,misaligned", [
+    (0, 2 * 10 * 1000, 3, False), (3, 2 * 9 * 999, 3, False),
+    (1, 2 * 4 * (2 * SPAN + 300), 1, False),
+    (3, 2 * 9 * (SPAN + 512 + 5), 1, False),
+    (0, 2 * 10 * (SPAN + 77), 37, False),
+    (0, 2 * 10 * (SPAN + 77), 37, True)])
 @pytest.mark.parametrize("engine", ENGINES)
-def test_kernels_match_plain(dev, mode, n, engine):
+def test_kernels_match_plain(dev, mode, n, c, misaligned, engine):
     cfg = MODES[mode]
     coeff = firdes.lowpass(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps, 1)
     fe = FusedFrontend(coeff, cfg.rf_decim, compute_dtype=engine,
                        device=dev)
     exact = engine in ("int8", "int8x2")
-    c = 3
     tail, ptail = fe.init_state((c,)), fe.init_state((c,))
     prev = pprev = (torch.zeros(c, device=dev), torch.zeros(c, device=dev))
     dtail, dptail = tail, ptail
     before = dict(LAUNCHES)
-    for blk in _blocks(c, n, dev):
+    for blk in _blocks(c, n, dev, misaligned):
         got, want = fe(blk, tail), frontend_reference(fe, blk, ptail)
         torch.cuda.synchronize()
         _assert_agree(got, want, exact)

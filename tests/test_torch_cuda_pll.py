@@ -118,6 +118,40 @@ def test_chain_floor_runs_the_loop(dev):
     assert torch.equal(fin, torch.stack(list(want)))
 
 
+@pytest.mark.parametrize("chunk,exact,groups", [(16, True, 1),
+                                                (32, False, 1),
+                                                (32, False, 2)])
+def test_chunk_floor_runs_the_loop(dev, chunk, exact, groups):
+    """The chunked loop's chain-floor microbenchmark runs the same chain:
+    its final state (integ, acc, cos acc, sin acc) equals the chunked
+    kernel's bit for bit, and the plain chunked loop's within 1e-3 (the
+    warp scans sum in another order than cumsum); it counts cycles and
+    nanoseconds."""
+    n = 4096
+    params = ((19e3, FS, 2.0, 0.0, 0.01), (114e3, FS, 0.5, 0.0, 0.003))
+    params = params[:groups]
+    xs = tuple(tones(1, n, p[0], dev, seed=g)[0]
+               for g, p in enumerate(params))
+    sts = tuple(pll_init((), dev) for _ in params)
+    cps, nps, fin = K.chunk_floor(xs, sts, params=params, chunk=chunk,
+                                  exact=exact)
+    assert cps > 0 and nps > 0 and fin.shape == (groups, 4)
+    before = dict(LAUNCHES)
+    _, news = K.pll_chunked_loop(tuple(x[None] for x in xs),
+                                 tuple(pll_init((1,), dev) for _ in params),
+                                 params=params, chunk=chunk, exact=exact)
+    _, plain = K.pll_chunked_kernel_reference(
+        tuple(x[None] for x in xs), tuple(pll_init((1,), dev) for _ in params),
+        params=params, chunk=chunk, exact=exact)
+    torch.cuda.synchronize()
+    key = "pll_chunked" if groups == 1 else "pll_chunked_multi"
+    assert LAUNCHES[key] == before[key] + 1
+    for g in range(groups):
+        assert torch.equal(fin[g], torch.stack([s[0] for s in news[g][:4]]))
+        want = torch.stack([s[0] for s in plain[g][:4]])
+        assert (fin[g] - want).abs().max().item() <= 1e-3
+
+
 @pytest.mark.parametrize("chunk", [16, 32, 64])
 def test_chunked_loop_matches_plain(dev, chunk):
     """The warp scans sum in another order than cumsum: 2e-4."""

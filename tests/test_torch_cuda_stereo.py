@@ -58,18 +58,26 @@ def _close(got, want, rel, bf16):
 
 @pytest.mark.parametrize("fm_dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("compute", [torch.float32, BF16])
-@pytest.mark.parametrize("n", [2048, 1280])
-def test_ifbank_mix_matches_plain(dev, fm_dtype, compute, n):
-    """n = 1280 leaves the last block of 1024 outputs one window full."""
+@pytest.mark.parametrize("n,c", [(2048, 3), (1280, 3), (1280, 1),
+                                 (3328, 37)])
+def test_ifbank_mix_matches_plain(dev, fm_dtype, compute, n, c):
+    """n = 1280 and 3328 leave the last 1024-sample time tile one window
+    full; 37 stations leave the bf16 engine's last block of 4 one station
+    (the others idle).  A second launch on the same inputs gives the same
+    bits (the window sums take a fixed order)."""
     bank = _bank(compute, BF16 if fm_dtype == BF16 else None)
     rng = np.random.default_rng(0)
-    fm = torch.from_numpy(rng.normal(0, 0.3, (3, 2, n)).astype(
+    fm = torch.from_numpy(rng.normal(0, 0.3, (c, 2, n)).astype(
         np.float32)).to(fm_dtype)
-    tail = ptail = bank.init_state((3,)).to(dev)
+    tail = ptail = bank.init_state((c,)).to(dev)
     before = LAUNCHES["ifbank_mix"]
     for b in range(2):
         x = fm[:, b].contiguous()
         got = bank.mix_call(x.to(dev), tail)
+        again = bank.mix_call(x.to(dev), tail)
+        for g, a in zip(got[:2] + got[2] + got[3], again[:2] + again[2]
+                        + again[3]):
+            assert torch.equal(g, a)
         want = bank.mix_call(x, ptail.cpu())
         torch.cuda.synchronize()
         stored_bf16 = bank.out_dtype == BF16
@@ -80,7 +88,7 @@ def test_ifbank_mix_matches_plain(dev, fm_dtype, compute, n):
             _close(gz, wz, zrel, False)
         assert torch.equal(got[4].cpu(), want[4])
         tail, ptail = got[4], want[4]
-    assert LAUNCHES["ifbank_mix"] == before + 2
+    assert LAUNCHES["ifbank_mix"] == before + 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
