@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
 It builds the CUDA kernels from csrc/ (logging registers, spills and the
 tensor-core instructions of the front end's integer engines, the IF
-bank's bf16 engine and the channelizer's bf16 engine: a kernel without
-them fails), holds each kernel against its plain PyTorch version on the
+bank's, the audio pair's and the channelizer's bf16 engines: a kernel
+without them fails), holds each kernel against its plain PyTorch version on the
 card (phases 2, 2b, 2c and 2d: the front end, the feedforward stereo +
 RDS kernels, the IF bank's four-stream variant and the carrier loops with
 the chain floors of the sequential and the chunked loops and the
@@ -224,7 +224,8 @@ def mfb_work(pl, n_out: int, ingest: str, compute: str,
 # kernels that must run on the tensor cores -> their SASS instruction
 TENSOR_CORE_KERNELS = {"mfb_tc_kernel": "HMMA",          # B7 bf16
                        "frontend_mma_kernel": "IMMA",    # B1/B2 int engines
-                       "ifbank_mma_kernel": "HMMA"}      # B3/B6 bf16
+                       "ifbank_mma_kernel": "HMMA",      # B3/B6 bf16
+                       "pair_mma_kernel": "HMMA"}        # B5 bf16
 
 
 def tensor_core_sass(lib: Path) -> None:
@@ -593,6 +594,10 @@ def check_stereo_kernels(blocks, device, reps: int = 10) -> dict:
         for g, w, what in zip(got, want, ("mono", "stereo")):
             err = max(err, max_err(g, w, 1e-5, False, f"audio_pair/{what} "
                                                       f"block {b}"))
+        if not (torch.equal(got[2], fm[:, -128:])
+                and torch.equal(got[3], mx[:, -128:])):
+            raise AssertionError(f"audio_pair block {b}: the new tails are "
+                                 "not the last 128 input columns")
         ta, tb, pta, ptb = got[2], got[3], got[2], got[3]
     t0 = pair.init_state((c,), bf16)
     ms, plain_ms = timed(
@@ -843,8 +848,10 @@ def check_loop_kernels(blocks, device, reps: int = 5) -> dict:
             results["pll_chunked_multi"] = (err, ms, plain_ms, n, n)
         del got, want
     # B9's and B10's chain floors: one warp per instance runs only the
-    # per-chunk chain over station 0's first 4096 samples in shared memory;
-    # its state equals the chunked kernel's bit for bit.  The ms at n are
+    # per-chunk chain (the kernel's own device functions: sincosf, the
+    # detector, the butterfly of the carried sums, the PI update and the
+    # wrap) over station 0's first 4096 samples in shared memory; its state
+    # equals the chunked kernel's bit for bit.  The ms at n are
     # from the floor kernel's own %globaltimer.
     fl = 4096
     x_p = pilot[0, :fl].contiguous().float()
@@ -870,9 +877,10 @@ def check_loop_kernels(blocks, device, reps: int = 5) -> dict:
         extra[f"floor_{name}_cycles_per_sample"] = cps
         extra[f"floor_{name}_ms"] = floor_ms
         log(f"kernel {key} chain floor/{name}: {cps:.1f} cycles, {nps:.2f} "
-            f"ns a sample ({len(xs)} warp(s) over {fl} samples, clock64 and "
-            f"globaltimer; {cps / nps * 1e3:.0f} MHz while it ran), "
-            f"{floor_ms:.2f} ms for n={n}")
+            f"ns a sample, {cps * chunk:.0f} cycles a chunk ({len(xs)} "
+            f"warp(s) over {fl} samples, clock64 and globaltimer; "
+            f"{cps / nps * 1e3:.0f} MHz while it ran), {floor_ms:.2f} ms for "
+            f"n={n}")
     del streams, pilot, carrier
     torch.cuda.empty_cache()
     return results
@@ -1599,7 +1607,7 @@ def run_loop_engines(device: str, seconds: float = 1.2) -> None:
 # (the front end's and the IF bank's float and tensor-core kernels)
 KERNEL_SYMBOLS = {"frontend_": ("frontend_demod", "frontend"),
                   "ifbank_": ("ifbank_mix", "ifbank"),
-                  "ffmix_kernel": ("ffmix",), "pair_kernel": ("audio_pair",),
+                  "ffmix_kernel": ("ffmix",), "pair_": ("audio_pair",),
                   "pll_loop_kernel": ("pll",),
                   "pll_chunked_kernel": ("pll_chunked", "pll_chunked_multi"),
                   "mfb_": ("mfb",)}
@@ -1721,15 +1729,18 @@ def main() -> int:
     build.library()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.library_path()})")
-    regs = []
+    regs, fn = [], "?"
     for line in (build.library_path().parent / "build.log").read_text(
             ).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs.append(int(m.group(1)))
         if "spill" in line and not re.search(r"\b0 bytes spill stores, "
                                              r"0 bytes spill loads", line):
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas: {fn}: {line.strip()}")
     log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
         "registers a thread, no spills unless listed above")
     tensor_core_sass(build.library_path())

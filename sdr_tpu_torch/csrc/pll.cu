@@ -61,18 +61,34 @@
 //     channel per ~500 cycles).  The wrap's floor modulo takes an exact
 //     shortcut: fmodf every sample took the exact mode from ~262 to ~301
 //     ms at 128 x 768,000 (PERF.md).
-//   - the chunked loop has a chain per chunk instead of per sample: the
-//     prediction's sin/cos and the detector run on all K samples at once,
-//     then the two scans.  One segment of W lanes (W = K rounded up to a
-//     power of two, at most 32) owns one (instance, channel); lane j
-//     evaluates sample j of the chunk; two segmented inclusive scans by
-//     __shfl_up_sync give ce and cumsum(ce); chunks longer than 32 loop
-//     over sub-blocks of 32 with the carried prefix.  With K = 16 a warp
-//     runs two channels.  The next sub-block's input is loaded before the
-//     current one's chain starts.  chunk_floor_kernel measures its floor:
-//     one warp a loop instance over x in shared memory, only the per-chunk
-//     dependent chain (prediction sin/cos, detector, the two scans, the PI
-//     update), timed by clock64 and %globaltimer like chain_floor_kernel.
+//   - the chunked loop has a chain per chunk instead of per sample.  One
+//     segment of W lanes (W = K rounded up to a power of two, at most 32)
+//     owns one (instance, channel); lane j evaluates sample j of the chunk
+//     (chunks longer than 32 take sub-blocks of 32 in turn).  With K = 16
+//     a warp runs two channels.  At 128 x 768,000 the joint launch has 256
+//     such warps, one per scheduler of 64-128 SMs, so only the chain's
+//     latency counts.  The carried state needs only two sums a chunk,
+//     ce = sum_j e_j and cs = sum_j cumsum(ce)_j = sum_j (K - j) e_j, and
+//     nothing in the reference orders them (its cumsums are triangular
+//     matmuls); so the design (pll_chunked_kernel) gives the chain only
+//     the recurrence: the prediction pred_j = acc + j (w0 + integ), one
+//     sincosf (the bits of sinf and cosf, sdr_sincos_check), the detector,
+//     a xor butterfly of the pair (e_j, (K - j) e_j) that leaves both sums
+//     in every lane (log2 W dependent shuffle levels, where the two
+//     inclusive scans and the broadcast took 2 log2 W + 1), the PI update
+//     at j = K and the wrap.  The wrap's floor modulo takes an exact
+//     quotient shortcut (mod_floor_q).  The per-sample phases and the
+//     NCO's cos leave the chain warp with the stores, as in the sequential
+//     loop: per block 2 chain warps, one NCO warp each and one producer
+//     warp, around shared rings of 8-row slots guarded by mbarriers.  The
+//     producer stages x (widened to float32) 3 slots ahead; the chain
+//     writes each row's e_j and its chunk's (acc, integ); the NCO warp
+//     forms cumsum(e) and cumsum(cumsum(e)) by one pair scan of 5 levels
+//     and writes nco in coalesced rows.  chunk_floor_kernel measures the
+//     floor: one warp a loop instance over x in shared memory, the chain
+//     alone (the same device functions, so its state equals the kernel's
+//     bit for bit), timed by clock64 and %globaltimer like
+//     chain_floor_kernel.
 //   - The TPU's lane padding to 128, its time-major transpose and its
 //     lower-triangular matmuls do not carry over.
 
@@ -85,7 +101,6 @@
 
 namespace {
 
-constexpr int kChunkThreads = 128;  // chunked loop: 4 warps per block
 constexpr int kMaxGroups = 4;       // instances of one chunked launch
 
 // Input samples are loaded ahead of their use as raw bits (Raw1) and
@@ -109,8 +124,8 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 // that has moved by less than a period since the last wrap, so FAST takes
 // a shortcut first: for b > 0 and -b < a < 2b, fmodf(a, b) is a, or
 // a - b, which is exact (Sterbenz: b <= a <= 2b), so the result is the
-// same bits as the general path.  (The chunked loop wraps once a chunk
-// and runs faster without the extra branch.)
+// same bits as the general path.  (The chunked loop's phase moves by up to
+// K w0 a chunk, past 2b: it takes mod_floor_q.)
 template <bool FAST>
 __device__ __forceinline__ float mod_floor(float a, float b) {
   if (FAST && b > 0.f && a > -b && a < __fmul_rn(2.f, b)) {
@@ -120,6 +135,24 @@ __device__ __forceinline__ float mod_floor(float a, float b) {
   float r = fmodf(a, b);
   if (r != 0.f && ((r < 0.f) != (b < 0.f))) r = __fadd_rn(r, b);
   return r;
+}
+
+// mod_floor by the quotient, the same bits: for b > 0 and |a| < 2^20 b,
+// q = trunc(a * (1/b)) is trunc(a / b) or one off it.  With the true q,
+// a - q b is fmodf's result, which is representable, so one fma gives it
+// exactly; a q one off leaves a value outside fmodf's range (same sign as
+// a, below b in magnitude), and that case takes the general path.  A zero
+// takes a's sign, as fmodf's does.
+__device__ __forceinline__ float mod_floor_q(float a, float b, float inv_b) {
+  if (b > 0.f && fabsf(a) < __fmul_rn(1048576.f, b)) {
+    const float q = truncf(__fmul_rn(a, inv_b));
+    const float r = fmaf(-q, b, a);
+    if (a >= 0.f ? (r >= 0.f && r < b) : (r <= 0.f && r > -b)) {
+      if (r == 0.f) return copysignf(0.f, a);
+      return r < 0.f ? __fadd_rn(r, b) : r;
+    }
+  }
+  return mod_floor<false>(a, b);
 }
 
 // sdr_tpu/ops/pallas/pll_kernel.py `_atan2_poly`: octant reduction and a
@@ -475,112 +508,279 @@ struct ChunkArgs {
   long long n;
 };
 
-// segmented inclusive prefix sum over the W lanes of a segment
-__device__ __forceinline__ float seg_scan(float v, int seg_lane, int width) {
-  for (int d = 1; d < width; d <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, d, width);
-    if (seg_lane >= d) v = __fadd_rn(u, v);
+// The chain of one chunk, shared by pll_chunked_kernel and
+// chunk_floor_kernel so that both give the same bits.  Lane j's error at
+// sample j of the chunk (0 where the lane has no sample), from the frozen
+// feedback: pred_j = acc + j wi, wi = w0 + integ.
+template <bool EXACT>
+__device__ __forceinline__ float chunk_error(float xv, float acc, float wi,
+                                             int j, bool act) {
+  const float pred = __fadd_rn(acc, __fmul_rn((float)j, wi));
+  float sn, cs;
+  sincosf(pred, &sn, &cs);
+  const float e = detect<EXACT>(__fmul_rn(xv, -sn), __fmul_rn(xv, cs));
+  return act ? e : 0.f;
+}
+
+// The chunk's end.  se, sw: the lane's sums of e_j and (K - j) e_j over
+// its sub-blocks; a xor butterfly over the segment's W lanes leaves
+// ce = sum e and cs = sum (K - j) e = sum_j cumsum(ce)_j in every lane (a
+// lane and its partner add the same two values: the same bits); then the
+// PI update at j = K, in the order of the per-sample phases, and the wrap.
+__device__ __forceinline__ void chunk_update(float se, float sw, int width,
+                                             float kf, const LoopParams& p,
+                                             float inv_wmod, float& integ,
+                                             float& acc) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    if (d < width) {
+      se = __fadd_rn(se, __shfl_xor_sync(0xffffffffu, se, d));
+      sw = __fadd_rn(sw, __shfl_xor_sync(0xffffffffu, sw, d));
+    }
   }
-  return v;
+  const float acc_last = __fadd_rn(
+      __fadd_rn(__fadd_rn(acc, __fmul_rn(kf, p.w0)), __fmul_rn(p.kp, se)),
+      __fadd_rn(__fmul_rn(kf, integ), __fmul_rn(p.ki, sw)));
+  integ = __fadd_rn(integ, __fmul_rn(p.ki, se));
+  acc = mod_floor_q(acc_last, p.wmod, inv_wmod);
+}
+
+// The warp-specialised chunked loop.  A block has kChainWarps chain warps,
+// one NCO warp for each and one producer warp (warps 0-1, 2-3 and 4: each
+// chain warp and each NCO warp on a scheduler of its own when the block
+// has the SM to itself).  A row is one 32-lane step of a chain warp: the
+// sub-block sb of one chunk of its channels (W lanes each).  Per chain
+// warp three rings of kCSlots slots of kRows rows:
+//   x:  the producer stages each lane's sample (widened to float32, 0 for
+//       a lane without one), kCSlots - 1 slots ahead;
+//   e:  the chain writes each lane's error e_j,
+//   st: and its chunk's (acc, integ) at the chunk's start;
+// the NCO warp forms per row the segment's inclusive cumsum(e) (plus the
+// chunk's earlier sub-blocks) and cumsum(cumsum(e)) by one pair scan,
+// then acc_j and nco = cos(arg scale + adj), one row segment's
+// consecutive samples per store.  One mbarrier per slot and direction.
+constexpr int kChainWarps = 2;
+constexpr int kRows = 8;       // rows of a ring slot
+constexpr int kCSlots = 4;     // ring depth
+constexpr int kChunkThreads = 32 * (2 * kChainWarps + 1);
+
+// segment lane l of a block's chain warp cw -> (instance g, channel c);
+// live is false for segments past the last channel, which run on zeros so
+// that the warp's shuffles stay converged
+struct ChunkLane {
+  int g;
+  long long c;
+  bool live;
+};
+
+__device__ __forceinline__ ChunkLane chunk_lane(const ChunkArgs& a, int cw,
+                                                int lane) {
+  long long c = ((long long)blockIdx.x * kChainWarps + cw) * (32 / a.width) +
+                lane / a.width;
+  int g = 0;
+  while (g < a.groups && c >= a.channels[g]) c -= a.channels[g++];
+  return ChunkLane{g, c, g < a.groups};
 }
 
 template <bool BF16, bool EXACT, bool LAG>
-__global__ void __launch_bounds__(kChunkThreads)
+__global__ void __launch_bounds__(kChunkThreads, 1)
     pll_chunked_kernel(const __grid_constant__ ChunkArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int W = a.width;
-  const int seg_lane = lane & (W - 1);
-  // segment -> (instance g, channel c); segments past the last channel
-  // run the loop on zeros so that the warp's shuffles stay converged
-  long long c = ((long long)blockIdx.x * (kChunkThreads / 32) +
-                 (threadIdx.x >> 5)) * (32 / W) + lane / W;
-  int g = 0;
-  while (g < a.groups && c >= a.channels[g]) c -= a.channels[g++];
-  const bool live = g < a.groups;
-  const void* x = nullptr;
-  float* nco = nullptr;
-  LoopParams p = a.p[0];
-  float integ = 0.f, acc = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxGroups; ++k)
-    if (live && k == g) {
-      x = a.x[k];
-      nco = a.nco[k];
-      p = a.p[k];
-      integ = a.st_in[k][c];
-      acc = a.st_in[k][a.channels[k] + c];
-    }
-  const int K = a.chunk;
-  const long long n = a.n;
-  const size_t row = live ? (size_t)c * (size_t)n : 0;
-  const Raw1<BF16> zero = Raw1<BF16>(0.f);
-  Raw1<BF16> xnext = (live && seg_lane < K) ? load1<BF16>(x, row + seg_lane)
-                                            : zero;
-  for (long long base = 0; base < n; base += K) {
-    const float wi = __fadd_rn(p.w0, integ);
-    float ce_c = 0.f, cs_c = 0.f, acc_last = 0.f;
-    for (int sb = 0; sb < K; sb += W) {
-      const int j = sb + seg_lane;
-      const bool act = live && j < K;
-      const float xv = widen(xnext);
-      {  // the next sub-block's sample, before this chain starts
-        int nj = j + W;
-        long long nb = base;
-        if (sb + W >= K) {
-          nj = seg_lane;
-          nb = base + K;
-        }
-        xnext = (live && nj < K && nb < n) ? load1<BF16>(x, row + nb + nj)
-                                           : zero;
-      }
-      const float t = (float)j;
-      const float pred = __fadd_rn(acc, __fmul_rn(t, wi));
-      float e = detect<EXACT>(__fmul_rn(xv, -sinf(pred)),
-                              __fmul_rn(xv, cosf(pred)));
-      if (!act) e = 0.f;
-      const float ce = (sb == 0) ? seg_scan(e, seg_lane, W)
-                                 : __fadd_rn(seg_scan(e, seg_lane, W), ce_c);
-      const float cs = (sb == 0) ? seg_scan(ce, seg_lane, W)
-                                 : __fadd_rn(seg_scan(ce, seg_lane, W), cs_c);
-      const float jf = __fadd_rn(t, 1.f);
-      const float cs_integ = __fadd_rn(__fmul_rn(jf, integ), __fmul_rn(p.ki, cs));
-      const float acc_j = __fadd_rn(
-          __fadd_rn(__fadd_rn(acc, __fmul_rn(jf, p.w0)), __fmul_rn(p.kp, ce)),
-          cs_integ);
-      if (act) {
-        const float out = LAG ? __fsub_rn(acc_j, p.w0) : acc_j;
-        nco[row + (size_t)(base + j)] =
-            cosf(__fadd_rn(__fmul_rn(out, p.scale), p.adj));
-      }
-      const int last = min(W, K - sb) - 1;
-      ce_c = __shfl_sync(0xffffffffu, ce, last, W);
-      cs_c = __shfl_sync(0xffffffffu, cs, last, W);
-      acc_last = __shfl_sync(0xffffffffu, acc_j, last, W);
-    }
-    integ = __fadd_rn(integ, __fmul_rn(p.ki, ce_c));
-    acc = mod_floor<false>(acc_last, p.wmod);
+  __shared__ float xring[kChainWarps][kCSlots][kRows][32];
+  __shared__ float ering[kChainWarps][kCSlots][kRows][32];
+  __shared__ float2 sring[kChainWarps][kCSlots][kRows][32];
+  // x staged, x slot free, e staged, e slot free
+  __shared__ uint64_t bars[kChainWarps][4][kCSlots];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kChainWarps; ++w)
+      for (int s = 0; s < kCSlots; ++s)
+        for (int k = 0; k < 4; ++k) bar_init(&bars[w][k][s], 32);
   }
-  if (live && seg_lane == 0) {
+  __syncthreads();
+  const int K = a.chunk, W = a.width;
+  const int rpc = (K + W - 1) / W;               // rows a chunk
+  const int seg_lane = lane & (W - 1);
+  const long long n = a.n;
+  const long long rows = (n / K) * rpc;
+  const long long slots = (rows + kRows - 1) / kRows;
+
+  if (warp < kChainWarps) {
+    // the chain
+    const int cw = warp;
+    const ChunkLane L = chunk_lane(a, cw, lane);
+    LoopParams p = a.p[0];
+    float integ = 0.f, acc = 0.f;
 #pragma unroll
     for (int k = 0; k < kMaxGroups; ++k)
-      if (k == g) {
-        const int ch = a.channels[k];
-        a.st_out[k][c] = integ;
-        a.st_out[k][ch + c] = acc;
-        a.st_out[k][2 * ch + c] = cosf(acc);
-        a.st_out[k][3 * ch + c] = sinf(acc);
+      if (L.live && k == L.g) {
+        p = a.p[k];
+        integ = a.st_in[k][L.c];
+        acc = a.st_in[k][a.channels[k] + L.c];
       }
+    const float inv_wmod = __frcp_rn(p.wmod);
+    const float kf = (float)K;
+    float wi = 0.f, se = 0.f, sw = 0.f;
+    int sb = 0;
+    for (long long t = 0; t < slots; ++t) {
+      const int slot = (int)(t % kCSlots);
+      const unsigned par = (unsigned)((t / kCSlots) & 1);
+      const int cnt = (int)min((long long)kRows, rows - t * kRows);
+      bar_wait(&bars[cw][0][slot], par);
+      bar_wait(&bars[cw][3][slot], par ^ 1u);
+      for (int r = 0; r < cnt; ++r) {
+        const float xv = xring[cw][slot][r][lane];
+        if (sb == 0) {
+          wi = __fadd_rn(p.w0, integ);
+          se = sw = 0.f;
+        }
+        const int j = sb * W + seg_lane;
+        const float e = chunk_error<EXACT>(xv, acc, wi, j, L.live && j < K);
+        ering[cw][slot][r][lane] = e;
+        sring[cw][slot][r][lane] = make_float2(acc, integ);
+        se = __fadd_rn(se, e);
+        sw = __fadd_rn(sw, __fmul_rn((float)(K - j), e));
+        if (++sb == rpc) {
+          sb = 0;
+          chunk_update(se, sw, W, kf, p, inv_wmod, integ, acc);
+        }
+      }
+      bar_arrive(&bars[cw][1][slot]);
+      bar_arrive(&bars[cw][2][slot]);
+    }
+    if (L.live && seg_lane == 0) {
+#pragma unroll
+      for (int k = 0; k < kMaxGroups; ++k)
+        if (k == L.g) {
+          const int ch = a.channels[k];
+          a.st_out[k][L.c] = integ;
+          a.st_out[k][ch + L.c] = acc;
+          a.st_out[k][2 * ch + L.c] = cosf(acc);
+          a.st_out[k][3 * ch + L.c] = sinf(acc);
+        }
+    }
+  } else if (warp < 2 * kChainWarps) {
+    // the NCO of chain warp cw
+    const int cw = warp - kChainWarps;
+    const ChunkLane L = chunk_lane(a, cw, lane);
+    LoopParams p = a.p[0];
+    float* nco = nullptr;
+#pragma unroll
+    for (int k = 0; k < kMaxGroups; ++k)
+      if (L.live && k == L.g) {
+        p = a.p[k];
+        nco = a.nco[k];
+      }
+    const size_t row0 = L.live ? (size_t)L.c * (size_t)n : 0;
+    long long chunk = 0;
+    int sb = 0;
+    float ce_c = 0.f, cs_c = 0.f;
+    for (long long t = 0; t < slots; ++t) {
+      const int slot = (int)(t % kCSlots);
+      const unsigned par = (unsigned)((t / kCSlots) & 1);
+      const int cnt = (int)min((long long)kRows, rows - t * kRows);
+      bar_wait(&bars[cw][2][slot], par);
+#pragma unroll 2
+      for (int r = 0; r < cnt; ++r) {
+        const float e = ering[cw][slot][r][lane];
+        const float2 st = sring[cw][slot][r][lane];   // (acc, integ)
+        // the pair scan over the segment: (ce, cs) of [i, j] combine with
+        // the d samples after them as ce = ce_a + ce_b, cs = cs_a + cs_b +
+        // d ce_a
+        float ce = e, cs = e;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          if (d < W) {
+            const float ca = __shfl_up_sync(0xffffffffu, ce, d, W);
+            const float sa = __shfl_up_sync(0xffffffffu, cs, d, W);
+            if (seg_lane >= d) {
+              cs = __fadd_rn(__fadd_rn(sa, cs), __fmul_rn((float)d, ca));
+              ce = __fadd_rn(ca, ce);
+            }
+          }
+        }
+        const int j = sb * W + seg_lane;
+        if (sb > 0) {   // the chunk's earlier sub-blocks
+          cs = __fadd_rn(__fadd_rn(cs_c, __fmul_rn((float)(seg_lane + 1),
+                                                   ce_c)), cs);
+          ce = __fadd_rn(ce_c, ce);
+        }
+        const float jf = (float)(j + 1);
+        const float acc_j = __fadd_rn(
+            __fadd_rn(__fadd_rn(st.x, __fmul_rn(jf, p.w0)),
+                      __fmul_rn(p.kp, ce)),
+            __fadd_rn(__fmul_rn(jf, st.y), __fmul_rn(p.ki, cs)));
+        if (L.live && j < K) {
+          const float out = LAG ? __fsub_rn(acc_j, p.w0) : acc_j;
+          nco[row0 + (size_t)(chunk * K + j)] =
+              cosf(__fadd_rn(__fmul_rn(out, p.scale), p.adj));
+        }
+        if (++sb == rpc) {
+          sb = 0;
+          ++chunk;
+        } else {
+          const int last = W - 1;   // a sub-block before the last is whole
+          ce_c = __shfl_sync(0xffffffffu, ce, last, W);
+          cs_c = __shfl_sync(0xffffffffu, cs, last, W);
+        }
+      }
+      bar_arrive(&bars[cw][3][slot]);
+    }
+  } else {
+    // the producer: lane l stages lane l's sample of each chain warp
+    ChunkLane L[kChainWarps];
+    const void* x[kChainWarps];
+    size_t row0[kChainWarps];
+#pragma unroll
+    for (int cw = 0; cw < kChainWarps; ++cw) {
+      L[cw] = chunk_lane(a, cw, lane);
+      x[cw] = nullptr;
+#pragma unroll
+      for (int k = 0; k < kMaxGroups; ++k)
+        if (L[cw].live && k == L[cw].g) x[cw] = a.x[k];
+      row0[cw] = L[cw].live ? (size_t)L[cw].c * (size_t)n : 0;
+    }
+    long long chunk = 0;
+    int sb = 0;
+    for (long long t = 0; t < slots; ++t) {
+      const int slot = (int)(t % kCSlots);
+      const unsigned par = (unsigned)((t / kCSlots) & 1);
+      const int cnt = (int)min((long long)kRows, rows - t * kRows);
+      // every load of the slot in flight before the first is widened
+      Raw1<BF16> v[kChainWarps][kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int j = sb * W + seg_lane;
+#pragma unroll
+        for (int cw = 0; cw < kChainWarps; ++cw)
+          v[cw][r] = (r < cnt && L[cw].live && j < K)
+                         ? load1<BF16>(x[cw], row0[cw] +
+                                       (size_t)(chunk * K + j))
+                         : Raw1<BF16>(0.f);
+        if (++sb == rpc) {
+          sb = 0;
+          ++chunk;
+        }
+      }
+#pragma unroll
+      for (int cw = 0; cw < kChainWarps; ++cw) {
+        bar_wait(&bars[cw][1][slot], par ^ 1u);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          xring[cw][slot][r][lane] = widen(v[cw][r]);
+        bar_arrive(&bars[cw][0][slot]);
+      }
+    }
   }
 }
 
 // The chunked loop's chain floor: warp g runs instance g's loop alone over
-// x_g (n <= kChunkFloorN samples, staged in shared memory), only the
-// per-chunk dependent chain of pll_chunked_kernel in its order of
-// operations: the prediction's sin/cos from the frozen feedback, the
-// detector, the two segmented scans and the PI update; no NCO and no
+// x_g (n <= kChunkFloorN samples, staged in shared memory), the chain of
+// pll_chunked_kernel alone, by the same device functions in the same
+// order: the prediction's sincosf, the detector, the butterfly of the
+// carried sums, the PI update and the wrap; no rings, no NCO and no
 // stores.  Lane 0 of each warp writes its clock64 cycles and %globaltimer
-// nanoseconds and its segment's final state (integ, acc, cos acc, sin acc),
-// the bits of pll_chunked_kernel's.
+// nanoseconds and its segment's final state (integ, acc, cos acc, sin
+// acc), the bits of pll_chunked_kernel's.
 constexpr int kChunkFloorN = 4096;
 constexpr int kChunkFloorG = 2;
 
@@ -598,38 +798,23 @@ __global__ void chunk_floor_kernel(const float* __restrict__ x, int n,
   const LoopParams p = g ? p1 : p0;
   const int K = chunk, W = width;
   const int seg_lane = lane & (W - 1);
+  const float inv_wmod = __frcp_rn(p.wmod);
+  const float kf = (float)K;
   float integ = st_in[2 * g], acc = st_in[2 * g + 1];
   const long long g0 = global_ns();
   const long long t0 = clock64();
   for (int base = 0; base < n; base += K) {
     const float wi = __fadd_rn(p.w0, integ);
-    float ce_c = 0.f, cs_c = 0.f, acc_last = 0.f;
+    float se = 0.f, sw = 0.f;
     for (int sb = 0; sb < K; sb += W) {
       const int j = sb + seg_lane;
       const bool act = j < K;
       const float xv = act ? xs[g][base + j] : 0.f;
-      const float t = (float)j;
-      const float pred = __fadd_rn(acc, __fmul_rn(t, wi));
-      float e = detect<EXACT>(__fmul_rn(xv, -sinf(pred)),
-                              __fmul_rn(xv, cosf(pred)));
-      if (!act) e = 0.f;
-      const float ce = (sb == 0) ? seg_scan(e, seg_lane, W)
-                                 : __fadd_rn(seg_scan(e, seg_lane, W), ce_c);
-      const float cs = (sb == 0) ? seg_scan(ce, seg_lane, W)
-                                 : __fadd_rn(seg_scan(ce, seg_lane, W), cs_c);
-      const float jf = __fadd_rn(t, 1.f);
-      const float cs_integ =
-          __fadd_rn(__fmul_rn(jf, integ), __fmul_rn(p.ki, cs));
-      const float acc_j = __fadd_rn(
-          __fadd_rn(__fadd_rn(acc, __fmul_rn(jf, p.w0)), __fmul_rn(p.kp, ce)),
-          cs_integ);
-      const int last = min(W, K - sb) - 1;
-      ce_c = __shfl_sync(0xffffffffu, ce, last, W);
-      cs_c = __shfl_sync(0xffffffffu, cs, last, W);
-      acc_last = __shfl_sync(0xffffffffu, acc_j, last, W);
+      const float e = chunk_error<EXACT>(xv, acc, wi, j, act);
+      se = __fadd_rn(se, e);
+      sw = __fadd_rn(sw, __fmul_rn((float)(K - j), e));
     }
-    integ = __fadd_rn(integ, __fmul_rn(p.ki, ce_c));
-    acc = mod_floor<false>(acc_last, p.wmod);
+    chunk_update(se, sw, W, kf, p, inv_wmod, integ, acc);
   }
   asm volatile("mov.b32 %0, %0;" : "+f"(acc));
   const long long t1 = clock64();
@@ -773,7 +958,7 @@ int sdr_pll_chunked(int groups, const long long* ptrs, const int* channels,
   while (w < chunk && w < 32) w <<= 1;
   a.width = w;
   a.n = n;
-  const long long per_block = (long long)(kChunkThreads / 32) * (32 / w);
+  const long long per_block = (long long)kChainWarps * (32 / w);
   dim3 grid((unsigned)((total + per_block - 1) / per_block));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) launch_chunked<true>(exact, lag, grid, s, a);

@@ -7,9 +7,14 @@ in csrc/audio.cu and replaces the Pallas kernel `_pair_kernel`:
     y[u] = sum_l h_rev[l] * xp[D*u + l],  xp = tail[-(taps-1):] ++ x
 
 per stream, the same terms as the U=1 polyphase resampler.  The carried
-state is the last CTX raw input samples of each stream.  What bounds it on
-an H100 and what its design does about it: see the source's header; times
-in PERF.md.
+state is the last CTX raw input samples of each stream.  The bf16 compute
+engine at D = 5 and 6 (the receiver's integer modes) runs on the tensor
+cores: the Toeplitz tile of the taps (`audio_tile_bf16`, built here and
+packed in the mma's A-fragment order by ifbank_kernel's `pack_a_bf16`)
+times 8 columns of the staged window, in the padded layout
+`window_index` gives; the float32 engine stays on the CUDA cores.  What
+bounds it on an H100 and what its design does about it: see the source's
+header; times in PERF.md.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (`pair_reference`); there is no fallback from one to the
@@ -22,9 +27,55 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.ops.cuda import build
+from sdr_tpu_torch.ops.cuda.ifbank_kernel import MMA_K, MMA_ROWS, pack_a_bf16
 
 CTX = 128  # carried input context columns (covers taps-1 <= 128)
 KERNEL_TAPS = 51
+# the bf16 engine's tensor-core FIR (csrc/audio.cu pair_mma_kernel): the
+# decimations it takes, the samples a column starts before D u0 beyond the
+# taps' reach (so that a lane's 4 samples of a k-step are one 8-byte
+# load), the outputs of a work item and the samples staged before D u0
+MMA_DOWNS = (5, 6)
+MMA_PHASE = 2
+ITEM_OUT = 1024
+LEAD = 56
+
+
+def mma_depth(down: int, taps: int = KERNEL_TAPS) -> int:
+    """K of the Toeplitz tile: the 15 D + taps + MMA_PHASE samples that 16
+    consecutive outputs reach, rounded up to a whole m16n8k16 step (128 at
+    D = 5, 144 at D = 6)."""
+    return -(-((MMA_ROWS - 1) * down + taps + MMA_PHASE) // MMA_K) * MMA_K
+
+
+def audio_tile_bf16(taps: np.ndarray, down: int) -> np.ndarray:
+    """The (16, K) float32 Toeplitz tile of taps h[0..T-1] at decimation
+    D: row r, column kk holds h[D r + T - 1 + MMA_PHASE - kk] (0 outside
+    the taps), so that tile @ x[D u0 - (T - 1 + MMA_PHASE) + kk] gives
+    outputs u0 .. u0 + 15 of y[u] = sum_k h[k] x[D u - k]."""
+    taps = np.asarray(taps, np.float32)
+    t = len(taps)
+    a = np.zeros((MMA_ROWS, mma_depth(down, t)), np.float32)
+    for r in range(MMA_ROWS):
+        a[r, down * r + MMA_PHASE:down * r + MMA_PHASE + t] = taps[::-1]
+    return a
+
+
+def window_pad(down: int) -> int:
+    """Samples of padding after every 16 D staged samples, so that
+    neighbouring columns (16 D samples apart) start 32 or 96 bytes past a
+    multiple of 128 and a half-warp's 8-byte loads of four columns hit 32
+    distinct banks: 0 at D = 5 (160 bytes), 16 at D = 6 (192 + 32)."""
+    for pad in (0, 16):
+        if (2 * (16 * down + pad)) % 128 in (32, 96):
+            return pad
+    raise ValueError(f"no conflict-free padding at D = {down}")
+
+
+def window_index(q, down: int):
+    """Where staged sample q (counted from D u0 - LEAD) lies in a stream's
+    padded window."""
+    return q + window_pad(down) * (q // (16 * down))
 
 
 class PairDecimFIR:
@@ -53,6 +104,14 @@ class PairDecimFIR:
                              ).to(compute_dtype).to(torch.float32)
         self._kernel_taps = np.ascontiguousarray(t.numpy())
         self._weight = t.flip(0).reshape(1, 1, -1).to(self.device)
+        # the bf16 engine's kernel takes the packed Toeplitz tile from a
+        # buffer on the card (copied there at the first launch)
+        self._mma_words = None
+        self._mma_dev = None
+        if (compute_dtype == torch.bfloat16 and self.down in MMA_DOWNS
+                and self.taps == KERNEL_TAPS):
+            self._mma_words = pack_a_bf16(audio_tile_bf16(
+                self._kernel_taps, self.down)).reshape(-1)
 
     def init_state(self, batch_shape: tuple[int, ...] = (),
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -74,11 +133,24 @@ class PairDecimFIR:
             raise ValueError(f"no audio-pair kernel for device {xa.device}")
         return ya, yb, xa[..., n - CTX:].clone(), xb[..., n - CTX:].clone()
 
+    def _taps_ptr(self, device) -> int:
+        """The kernel's taps: the host float32 array (CUDA-core engine) or
+        the packed tile on the card (bf16 engine at D = 5, 6)."""
+        if self._mma_words is None:
+            return self._kernel_taps.ctypes.data
+        if self._mma_dev is None or self._mma_dev.device != device:
+            self._mma_dev = torch.from_numpy(self._mma_words).to(device)
+        return self._mma_dev.data_ptr()
+
     def _kernel(self, xa, xb, tail_a, tail_b):
         *lead, n = xa.shape
         if self.taps != KERNEL_TAPS or self.out_dtype != torch.float32:
             raise ValueError(f"the CUDA audio pair takes {KERNEL_TAPS} taps "
                              "and a float32 output")
+        if self.compute_dtype == torch.bfloat16 and \
+                self.down not in MMA_DOWNS:
+            raise ValueError(f"the CUDA audio pair's bf16 engine takes D in "
+                             f"{MMA_DOWNS}")
         tensors = (xa, xb, tail_a, tail_b)
         if any(t.device != xa.device for t in tensors):
             raise ValueError("all inputs must be on one device")
@@ -98,7 +170,7 @@ class PairDecimFIR:
         build.check(build.library().sdr_audio_pair(
             xa.data_ptr(), xb.data_ptr(), tail_a.data_ptr(),
             tail_b.data_ptr(), int(xa.dtype == bf16), int(xb.dtype == bf16),
-            channels, n, self.down, self._kernel_taps.ctypes.data, self.taps,
+            channels, n, self.down, self._taps_ptr(xa.device), self.taps,
             int(self.compute_dtype == bf16), ya.data_ptr(), yb.data_ptr(),
             stream))
         build.LAUNCHES["audio_pair"] += 1

@@ -17,7 +17,10 @@ math, and the port copies neither (there is no channel limit here).
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain PyTorch
 version beside it (`pll_kernel_reference`, `pll_chunked_kernel_reference`);
-there is no fallback from one to the other.  Each launch adds one to
+there is no fallback from one to the other.  `pll_chunked_kernel_order`
+runs the plain chunked loop with its sums in the kernel's order
+(`kernel_order_sums`), so that the tests can hold that order to the
+reference.  Each launch adds one to
 `build.LAUNCHES["pll"]` (the sequential loop, one launch for all its
 instances), `["pll_chunked"]` (the
 chunked loop, one instance) or `["pll_chunked_multi"]` (several).
@@ -205,9 +208,10 @@ def chain_floor(x: torch.Tensor, state: PLLState, *, params,
 def chunk_floor(xs, states, *, params, chunk: int, exact: bool = False):
     """The chunked loop's chain floor on the card: one warp per instance
     (1 or 2, the joint launch's) runs only the per-chunk dependent chain
-    (the prediction's sin/cos, the detector, the two segmented scans and
-    the PI update) over x (n,) float32, n <= 4096 and a multiple of
-    chunk, staged in shared memory (csrc/pll.cu `chunk_floor_kernel`).
+    of the chunked kernel (the prediction's sincosf, the detector, the
+    butterfly of the carried sums, the PI update and the wrap) over x (n,)
+    float32, n <= 4096 and a multiple of chunk, staged in shared memory
+    (csrc/pll.cu `chunk_floor_kernel`).
     Returns (clock64 cycles a sample, %globaltimer nanoseconds a sample,
     each the slowest instance's, and the final states as a (G, 4) float32
     tensor of integ, acc, cos acc, sin acc: the bits of pll_chunked_loop's
@@ -333,6 +337,83 @@ def pll_chunked_kernel_reference(xs, states, *, params, chunk: int,
     signature: a loop over chunks in the reference kernel's form
     (cs_integ = j*integ + ki*cumsum(ce)), vectorised over every
     instance's channels with per-lane parameters."""
+    return _chunked_plain(xs, states, params, chunk, lag_correction, exact,
+                          _cumsum_sums)
+
+
+def pll_chunked_kernel_order(xs, states, *, params, chunk: int,
+                             lag_correction: bool = True,
+                             exact: bool = False):
+    """The chunked loop with its sums in the CUDA kernel's order
+    (`kernel_order_sums`), pll_chunked_loop's signature: what the tests
+    hold against the reference, so that a kernel whose sums take that
+    order is known to stay within its gates.  Not a path of the port."""
+    return _chunked_plain(xs, states, params, chunk, lag_correction, exact,
+                          kernel_order_sums)
+
+
+def _cumsum_sums(e: torch.Tensor, chunk: int):
+    ce = torch.cumsum(e, dim=-1)
+    cs = torch.cumsum(ce, dim=-1)
+    return ce, cs, ce[..., -1:], cs[..., -1:]
+
+
+def kernel_order_sums(e: torch.Tensor, chunk: int):
+    """One chunk's sums in csrc/pll.cu's order, float32 each operation:
+    e (..., K) -> (ce, cs, ce_K, cs_K).  Per sample (the NCO warp), ce =
+    cumsum(e) and cs = cumsum(ce) by one pair scan over segments of W
+    lanes (W = K rounded up to a power of two, at most 32), the earlier
+    sub-blocks' sums carried in; for the carried state (the chain),
+    ce_K = sum e and cs_K = sum (K - j) e_j, each lane's sums over its
+    sub-blocks, then a xor butterfly over the W lanes."""
+    k = chunk
+    w = min(32, 1 << (k - 1).bit_length())
+    rpc = -(-k // w)
+    lead = e.shape[:-1]
+    rows = torch.nn.functional.pad(e, (0, rpc * w - k)).reshape(
+        *lead, rpc, w)
+    lane = torch.arange(w, device=e.device)
+    # the chain: the lane's sums, then the butterfly
+    se = torch.zeros((*lead, w), dtype=torch.float32, device=e.device)
+    sw = torch.zeros_like(se)
+    for sb in range(rpc):
+        j = sb * w + lane
+        se = se + rows[..., sb, :]
+        sw = sw + (k - j).float() * rows[..., sb, :]
+    d = 1
+    while d < w:
+        se = se + se[..., lane ^ d]
+        sw = sw + sw[..., lane ^ d]
+        d <<= 1
+    # the NCO: the pair scan a row, the chunk's earlier rows carried in
+    ces, css = [], []
+    for sb in range(rpc):
+        ce = rows[..., sb, :].clone()
+        cs = ce.clone()
+        d = 1
+        while d < w:
+            ca = torch.zeros_like(ce)
+            sa = torch.zeros_like(cs)
+            ca[..., d:], sa[..., d:] = ce[..., :-d], cs[..., :-d]
+            up = lane >= d
+            cs = torch.where(up, (sa + cs) + float(d) * ca, cs)
+            ce = torch.where(up, ca + ce, ce)
+            d <<= 1
+        if sb > 0:
+            cs = (cs_c + (lane + 1).float() * ce_c) + cs
+            ce = ce_c + ce
+        ce_c, cs_c = ce[..., -1:], cs[..., -1:]
+        ces.append(ce)
+        css.append(cs)
+    ce = torch.cat(ces, dim=-1)[..., :k]
+    cs = torch.cat(css, dim=-1)[..., :k]
+    return ce, cs, se[..., :1], sw[..., :1]
+
+
+def _chunked_plain(xs, states, params, chunk, lag_correction, exact, sums):
+    """The chunked loop over G instances' channels with per-lane
+    parameters; sums(e, chunk) -> (cumsum(e), cumsum(cumsum(e)), and their
+    last values) in the order of the version it stands for."""
     rows = [state_rows(x, s) for x, s in zip(xs, states)]
     n, dev = rows[0][1], xs[0].device
     x = torch.cat([r[2].float() for r in rows])           # (C_all, n)
@@ -346,20 +427,20 @@ def pll_chunked_kernel_reference(xs, states, *, params, chunk: int,
     detect = torch.atan2 if exact else atan2_poly
     t = torch.arange(chunk, dtype=torch.float32, device=dev)
     j = t + 1.0
+    kf = float(chunk)
     integ, acc = st[0, :, None], st[1, :, None]
     out = torch.empty_like(x)
     for b in range(0, n, chunk):
         xc = x[:, b:b + chunk]
         pred = acc + t * (w0 + integ)
         e = detect(xc * -torch.sin(pred), xc * torch.cos(pred))
-        ce = torch.cumsum(e, dim=-1)
-        integ_i = integ + ki * ce
-        cs_integ = j * integ + ki * torch.cumsum(ce, dim=-1)
-        acc_i = acc + j * w0 + kp * ce + cs_integ
+        ce, cs, ce_k, cs_k = sums(e, chunk)
+        acc_i = acc + j * w0 + kp * ce + (j * integ + ki * cs)
         arg = acc_i - w0 if lag_correction else acc_i
         out[:, b:b + chunk] = torch.cos(arg * scale + adj)
-        integ = integ_i[:, -1:]
-        acc = torch.remainder(acc_i[:, -1:], wmod)
+        acc_k = acc + kf * w0 + kp * ce_k + (kf * integ + ki * cs_k)
+        integ = integ + ki * ce_k
+        acc = torch.remainder(acc_k, wmod)
     integ, acc = integ[:, 0], acc[:, 0]
     fin = torch.stack([integ, acc, torch.cos(acc), torch.sin(acc)])
     ncos, news, lo = [], [], 0

@@ -125,7 +125,7 @@ def test_chunk_floor_runs_the_loop(dev, chunk, exact, groups):
     """The chunked loop's chain-floor microbenchmark runs the same chain:
     its final state (integ, acc, cos acc, sin acc) equals the chunked
     kernel's bit for bit, and the plain chunked loop's within 1e-3 (the
-    warp scans sum in another order than cumsum); it counts cycles and
+    butterfly sums in another order than cumsum); it counts cycles and
     nanoseconds."""
     n = 4096
     params = ((19e3, FS, 2.0, 0.0, 0.01), (114e3, FS, 0.5, 0.0, 0.003))
@@ -153,17 +153,31 @@ def test_chunk_floor_runs_the_loop(dev, chunk, exact, groups):
 
 
 @pytest.mark.parametrize("chunk", [16, 32, 64])
-def test_chunked_loop_matches_plain(dev, chunk):
-    """The warp scans sum in another order than cumsum: 2e-4."""
-    x = tones(64, 3200, 19e3, dev)
-    args = dict(params=((19e3, FS, 2.0, 0.1,
-                         0.01 if chunk <= 32 else 0.003),), chunk=chunk)
-    st = pll_init((64,), dev)
-    before = LAUNCHES["pll_chunked"]
-    (g,), (gs,) = K.pll_chunked_loop((x,), (st,), **args)
-    assert LAUNCHES["pll_chunked"] == before + 1
-    (w,), (ws,) = K.pll_chunked_kernel_reference((x,), (st,), **args)
-    same((g, gs), (w, ws), 2e-4)
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("lag", [True, False])
+def test_chunked_loop_matches_plain(dev, chunk, groups, dtype, exact, lag):
+    """The chunked kernel (its sums in the butterfly and pair-scan order,
+    not cumsum's: 2e-4) for one instance (64 channels) and two (the pilot
+    loop and the RDS carrier loop, 20 channels: a chain warp's segments
+    across both instances at chunk 16), float32 and bf16 inputs, libm
+    atan2f and the polynomial, lag correction on and off; chunk 64 runs
+    two sub-blocks a chunk (bandwidth 0.003, below the chaotic range)."""
+    bw = 0.01 if chunk <= 32 else 0.003
+    params = ((19e3, FS, 2.0, 0.1, bw), (114e3, FS, 0.5, 0.0, 0.003))
+    xs = (tones(64, 3200, 19e3, dev).to(dtype),
+          tones(20, 3200, 114e3, dev, seed=1).to(dtype))[:groups]
+    sts = (pll_init((64,), dev), pll_init((20,), dev))[:groups]
+    args = dict(params=params[:groups], chunk=chunk, exact=exact,
+                lag_correction=lag)
+    key = "pll_chunked" if groups == 1 else "pll_chunked_multi"
+    before = LAUNCHES[key]
+    got = K.pll_chunked_loop(xs, sts, **args)
+    assert LAUNCHES[key] == before + 1
+    want = K.pll_chunked_kernel_reference(xs, sts, **args)
+    for g in range(groups):
+        same((got[0][g], got[1][g]), (want[0][g], want[1][g]), 2e-4)
 
 
 def test_joint_loop_matches_plain(dev):

@@ -112,26 +112,73 @@ def test_ffmix_matches_plain(dev, dtype):
     assert LAUNCHES["ffmix"] == before + 1
 
 
+def _on_card(x, dev, offset):
+    """x on the card; with offset, a contiguous view that starts `offset`
+    elements past the start of its allocation (off a 16-byte boundary)."""
+    if not offset:
+        return x.to(dev)
+    flat = torch.zeros(x.numel() + offset, dtype=x.dtype, device=dev)
+    flat[offset:] = x.reshape(-1).to(dev)
+    view = flat[offset:].reshape(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
 @pytest.mark.parametrize("compute", [torch.float32, BF16])
 @pytest.mark.parametrize("down", [5, 6])
-def test_audio_pair_matches_plain(dev, compute, down):
+@pytest.mark.parametrize("c,m,offset", [(3, 600, 0), (1, 2100, 0),
+                                        (37, 1100, 0), (3, 1030, 1)])
+def test_audio_pair_matches_plain(dev, compute, down, c, m, offset):
+    """Both engines (bf16 on the tensor cores at D = 5 and 6, f32 on the
+    CUDA cores) against the plain conv over two blocks with the tails
+    carried: one station and 37, m outputs off the bf16 engine's
+    1024-output item (a last item of 600, 30, 76 or 52), streams that
+    start off a 16-byte boundary (staged element-wise), a float32 and a
+    bf16 stream in one launch; a second launch on the same inputs gives
+    the same bits, and the new tails are the last 128 input columns."""
     cfg = MODES[0]
     coeff = firdes.lowpass(cfg.if_fs, cfg.audio_fc, cfg.audio_taps, 1)
     pair = PairDecimFIR(coeff, down, compute_dtype=compute, device="cpu")
     rng = np.random.default_rng(2)
-    n = down * 600
-    xa = torch.from_numpy(rng.normal(0, 1, (2, 3, n)).astype(np.float32))
+    n = down * m
+    xa = torch.from_numpy(rng.normal(0, 1, (2, c, n)).astype(np.float32))
     xb = xa.flip(-1).to(BF16)
-    ta = pair.init_state((3,))
-    tb = pair.init_state((3,), BF16)
+    ta = pair.init_state((c,))
+    tb = pair.init_state((c,), BF16)
     pta, ptb = ta, tb
+    before = LAUNCHES["audio_pair"]
     for b in range(2):
-        got = pair(xa[b].to(dev), xb[b].to(dev), ta.to(dev), tb.to(dev))
+        args = (_on_card(xa[b], dev, offset), _on_card(xb[b], dev, offset),
+                ta.to(dev), tb.to(dev))
+        got = pair(*args)
+        again = pair(*args)
         want = pair(xa[b], xb[b], pta, ptb)
         torch.cuda.synchronize()
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)
         for g, w in zip(got[:2], want[:2]):
             _close(g, w, 1e-5, False)
+        for g, w in zip(got[2:], want[2:]):
+            assert torch.equal(g.cpu(), w)
         ta, tb, pta, ptb = got[2], got[3], want[2], want[3]
+    assert LAUNCHES["audio_pair"] == before + 4
+
+
+def test_audio_pair_bf16_refuses_other_decimations(dev):
+    """The bf16 engine's Toeplitz tile is built for D = 5 and 6, the
+    integer modes' decimations; another D raises, the f32 engine takes
+    it."""
+    cfg = MODES[0]
+    coeff = firdes.lowpass(cfg.if_fs, cfg.audio_fc, cfg.audio_taps, 1)
+    x = torch.zeros((2, 4 * 300), device=dev)
+    for compute in (BF16, torch.float32):
+        pair = PairDecimFIR(coeff, 4, compute_dtype=compute, device=dev)
+        tail = pair.init_state((2,))
+        if compute == BF16:
+            with pytest.raises(ValueError):
+                pair(x, x, tail, tail)
+        else:
+            assert pair(x, x, tail, tail)[0].shape == (2, 300)
 
 
 def test_receiver_on_card_matches_cpu(dev):

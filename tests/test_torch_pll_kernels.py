@@ -3,8 +3,10 @@ sdr_tpu's Pallas kernels (interpret mode on the CPU, as
 tests/test_pallas.py runs them), on the same numpy-seeded inputs: the
 polynomial phase detector, the sequential loop (`pll_pallas`), the
 chunked loop (`pll_pallas_chunked`) and the joint pilot + RDS loop
-(`pll_pallas_chunked_multi`).  Bounds: the reference's own (nco within
-2e-4, phase_acc within 1e-3 modulo the wrap period)."""
+(`pll_pallas_chunked_multi`), and the chunked loop with its sums in the
+CUDA kernel's order (`kernel_order_sums`: butterfly and pair scan).
+Bounds: the reference's own (nco within 2e-4, phase_acc within 1e-3
+modulo the wrap period)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -145,3 +147,64 @@ def test_loop_wrappers_refuse_what_they_do_not_take():
                                  (tpll.pll_init((2,), device="cpu"),) * 2,
                                  params=((19e3, FS, 2.0, 0.0, 0.01),) * 2,
                                  chunk=16)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_kernel_order_sums_match_reference(chunk):
+    """csrc/pll.cu's order of the chunk sums (the NCO warp's pair scan a
+    row with the earlier sub-blocks carried in; the chain's butterfly of
+    (e_j, (K - j) e_j)) against the reference kernel's lower-triangular
+    matmuls (`_pll_chunked_kernel_multi`: ce = tri e, cs = tri ce), per
+    sample and at j = K, within 2e-6 of max (float32 sums in two orders)."""
+    e = np.random.default_rng(chunk).normal(0, 0.5, (5, chunk)).astype(
+        np.float32)
+    tri = np.tril(np.ones((chunk, chunk), np.float32))
+    jce = jnp.dot(jnp.asarray(tri), jnp.asarray(e.T),
+                  preferred_element_type=jnp.float32)
+    jcs = jnp.dot(jnp.asarray(tri), jce, preferred_element_type=jnp.float32)
+    jce, jcs = np.asarray(jce).T, np.asarray(jcs).T
+    ce, cs, ce_k, cs_k = tkernel.kernel_order_sums(torch.from_numpy(e), chunk)
+    for got, want in ((ce, jce), (cs, jcs), (ce_k[:, 0], jce[:, -1]),
+                      (cs_k[:, 0], jcs[:, -1])):
+        assert got.dtype == torch.float32
+        err = np.abs(got.numpy().astype(np.float64) - want).max()
+        assert err <= 2e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("chunk,n", [(16, 3200), (32, 3200), (64, 3000)],
+                         ids=["16", "32", "clamped_60"])
+def test_kernel_order_loop_matches_reference(chunk, n):
+    """The whole chunked loop with its sums in the CUDA kernel's order
+    stays within the reference's gates of pll_pallas_chunked (as
+    test_pll_pallas_chunked_plain_matches_reference), chunk 64 clamped to
+    60 (two sub-blocks, the second 28 lanes), bandwidth 0.003 there."""
+    x = tones(2, n, seed=chunk)
+    kw = dict(freq=19e3, fs=FS, nco_scale=2.0, phase_adjust=0.1,
+              norm_bandwidth=0.01 if chunk <= 32 else 0.003)
+    jout, jst = jkernel.pll_pallas_chunked(
+        jnp.asarray(x), jpll.pll_init((2,)), interpret=True, chunk=chunk,
+        **kw)
+    k = tpll._largest_divisor_at_most(n, chunk)
+    (tout,), (tst,) = tkernel.pll_chunked_kernel_order(
+        (torch.from_numpy(x),), (tpll.pll_init((2,), device="cpu"),),
+        params=((kw["freq"], FS, 2.0, 0.1, kw["norm_bandwidth"]),), chunk=k)
+    assert_loop_close(tout, tst, jout, jst, 2 * np.pi)
+
+
+def test_kernel_order_joint_loop_matches_reference():
+    """G = 2 in the kernel's order against pll_pallas_chunked_multi (the
+    pilot and the RDS carrier, wrap periods 2 pi and 4 pi)."""
+    n = 3200
+    pilot = tones(3, n, seed=41)
+    carrier = tones(2, n, seed=42, freqs=(RDS_FREQ,))
+    params = ((19e3, FS, 2.0, 0.25, 0.01), (RDS_FREQ, FS, 0.5, 0.0, 0.003))
+    jouts, jnew = jkernel.pll_pallas_chunked_multi(
+        (jnp.asarray(pilot), jnp.asarray(carrier)),
+        (jpll.pll_init((3,)), jpll.pll_init((2,))), params=params, chunk=32,
+        interpret=True)
+    touts, tnew = tkernel.pll_chunked_kernel_order(
+        (torch.from_numpy(pilot), torch.from_numpy(carrier)),
+        (tpll.pll_init((3,), device="cpu"), tpll.pll_init((2,), device="cpu")),
+        params=params, chunk=32)
+    for g, period in enumerate((2 * np.pi, 4 * np.pi)):
+        assert_loop_close(touts[g], tnew[g], jouts[g], jnew[g], period)

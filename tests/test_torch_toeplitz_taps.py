@@ -4,7 +4,8 @@ layout its kernel reads, reproduces sdr_tpu's Pallas kernel in interpret
 mode.  The front end (B1/B2) exactly in int64, for int8 and int8x2 at D =
 4, 9 and 10, with the A-fragment packing and the halo and guard offsets;
 the IF bank with mix sums (B3) within 1e-6 in float64, with the rds^2
-halo and the k-step padding."""
+halo and the k-step padding; the audio pair (B5) within 1e-6 at D = 5
+and 6, through the padded window of each work item."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from sdr_tpu.ops.pallas import ifbank_kernel as jifbank
+from sdr_tpu.ops.pallas.audio_kernel import PairDecimFIR as JaxPair
 from sdr_tpu.ops.pallas.frontend_kernel import FusedFrontend as JaxFrontend
 from sdr_tpu_torch.config import MODES
 from sdr_tpu_torch.ops import firdes
+from sdr_tpu_torch.ops.cuda import audio_kernel as A
 from sdr_tpu_torch.ops.cuda import frontend_kernel as F
 from sdr_tpu_torch.ops.cuda import ifbank_kernel as B
 
@@ -244,3 +247,120 @@ def test_ifbank_tile_depth_and_offsets():
     last = 128 * (tiles - 1) + 16 * 7 + 4 * 3 + 16 * 4 + 3  # the last load
     assert fm_col + last < fm_len and sq_col + last < sq_len
     assert rds_col + 128 + last < fm_len
+
+
+# ------------------------------------------------------------------ B5
+def _audio_coeff():
+    return firdes.lowpass(CFG.if_fs, CFG.audio_fc, CFG.audio_taps, 1)
+
+
+def _staged_window(x, tail, u0, down, n):
+    """One stream's window of the item that starts at output u0, as
+    csrc/audio.cu stages it: samples D u0 - LEAD ... (the carried tail
+    before 0, zeros past n) at their padded places (float64)."""
+    q = np.arange(down * A.ITEM_OUT + A.LEAD)
+    p = down * u0 - A.LEAD + q
+    vals = np.where(p < 0, tail[..., np.clip(A.CTX + p, 0, A.CTX - 1)],
+                    x[..., np.clip(p, 0, n - 1)])
+    vals = np.where(p < n, vals, 0.0)
+    win = np.zeros(x.shape[:-1] + (int(A.window_index(q[-1], down)) + 1,))
+    win[..., A.window_index(q, down)] = vals
+    return win
+
+
+def _audio_mma_outputs(tile, x, tail, down):
+    """What the kernel's products give, item by item: per 16-output column
+    at u, the tile times the 4-sample groups the lanes load from the padded
+    window, from the column's start D (u - u0) + LEAD - 52."""
+    n = x.shape[-1]
+    m = n // down
+    k = tile.shape[1]
+    out = np.zeros(x.shape[:-1] + (m,))
+    for u0 in range(0, m, A.ITEM_OUT):
+        win = _staged_window(x, tail, u0, down, n)
+        win = np.concatenate([win, np.zeros(x.shape[:-1] + (k,))], axis=-1)
+        for u in range(u0, min(u0 + A.ITEM_OUT, m), 16):
+            q0 = down * (u - u0) + A.LEAD - 50 - A.MMA_PHASE
+            idx = np.concatenate([A.window_index(q0 + 4 * g, down) + np.arange(4)
+                                  for g in range(k // 4)])
+            seg = win[..., idx] @ tile.T.astype(np.float64)
+            out[..., u:u + 16] = seg[..., :min(16, m - u)]
+    return out
+
+
+@pytest.mark.parametrize("down", [5, 6])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_audio_tile_reproduces_reference(compute, down):
+    """B5's Toeplitz tile (the packed one, unpacked, for the bf16 engine)
+    times the padded windows of csrc/audio.cu's items (1536 outputs: a
+    whole item and half of one, the first 56 samples of the first from
+    the carried tail) reproduces sdr_tpu's PairDecimFIR (the Pallas
+    `_pair_kernel` in interpret mode) on both streams, within 1e-6 of max
+    in float64 (float32 sums in another order); bf16 rounds the inputs
+    and the taps, f32 neither."""
+    bf = compute == "bf16"
+    coeff = _audio_coeff()
+    pair = A.PairDecimFIR(coeff, down, device="cpu",
+                          compute_dtype=torch.bfloat16 if bf
+                          else torch.float32)
+    if bf:
+        tile = B.unpack_a_bf16(pair._mma_words.reshape(-1, 32, 4))
+        np.testing.assert_array_equal(
+            tile, A.audio_tile_bf16(pair._kernel_taps, down))
+    else:
+        assert pair._mma_words is None
+        tile = A.audio_tile_bf16(pair._kernel_taps, down)
+    rng = np.random.default_rng(down)
+    c, n = 3, down * 1536
+    xs = rng.normal(0, 0.5, (2, c, n)).astype(np.float32)
+    tails = rng.normal(0, 0.5, (2, c, A.CTX)).astype(np.float32)
+    rnd = ((lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+           if bf else (lambda a: a))
+    jpair = JaxPair(coeff, down, compute_dtype=jnp.bfloat16 if bf
+                    else jnp.float32)
+    want = jpair(*(jnp.asarray(v) for v in (xs[0], xs[1], tails[0],
+                                              tails[1])), interpret=True)
+    for s in range(2):
+        got = _audio_mma_outputs(tile, rnd(xs[s]).astype(np.float64),
+                                 rnd(tails[s]).astype(np.float64), down)
+        w = np.asarray(want[s], np.float64)
+        assert got.shape == w.shape
+        assert np.abs(got - w).max() <= 1e-6 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("down", [5, 6])
+def test_audio_tile_depth_and_offsets(down):
+    """K covers 15 D + 53 samples, rounded up to a whole k-step (128 at D
+    = 5, 144 at D = 6), each row's band, the packing round trip; the item's
+    lead covers the taps' reach and lies in the carried tail; every
+    column's 4-sample groups are contiguous in the padded window and
+    start on 4 samples (8-byte loads); a half-warp's four columns fall on
+    distinct banks; the last column's reach stays in the window."""
+    k = A.mma_depth(down)
+    assert k == {5: 128, 6: 144}[down]
+    assert k - 16 < 15 * down + 51 + A.MMA_PHASE <= k
+    taps = (np.arange(1, 52) / 64.0).astype(np.float32)
+    tile = A.audio_tile_bf16(taps, down)
+    for r in range(16):
+        np.testing.assert_array_equal(
+            tile[r, down * r + 2:down * r + 53], taps[::-1])
+        assert np.count_nonzero(tile[r]) == 51
+    np.testing.assert_array_equal(B.unpack_a_bf16(B.pack_a_bf16(tile)), tile)
+    assert A.LEAD % 8 == 0 and 50 + A.MMA_PHASE <= A.LEAD <= A.CTX
+    pad, seg = A.window_pad(down), 16 * down
+    assert pad == {5: 0, 6: 16}[down]
+    for u in range(0, A.ITEM_OUT, 16):
+        q0 = down * u + A.LEAD - 50 - A.MMA_PHASE   # the column's start
+        assert q0 >= 0 and q0 % 4 == 0
+        groups = A.window_index(q0 + np.arange(0, k, 4), down)
+        for i in range(4):
+            np.testing.assert_array_equal(
+                A.window_index(q0 + np.arange(0, k, 4) + i, down), groups + i)
+    assert down * (A.ITEM_OUT - 16) + A.LEAD - 52 + k <= \
+        down * A.ITEM_OUT + A.LEAD
+    # a half-warp: columns g = 0..3, each 4 lanes of 8 bytes from its start
+    starts = [2 * int(A.window_index(A.LEAD - 52 + seg * g, down))
+              for g in range(4)]
+    banks = {((b + 8 * t) // 4 + i) % 32 for b in starts for t in range(4)
+             for i in range(2)}
+    assert len(banks) == 32
