@@ -32,12 +32,26 @@ must launch and those it must not:
     `--scan`) and 64-station WidebandReceiver steps of the --fast
     profiles held to the CPU; wideband default: the CLI without --fast
     (the scan loops on the channelized stations) and the default
-    profile's 64-station steps.
+    profile's 64-station steps;
+  - stations --fast (phases 3h, 4f, 3i): the CLI's --stations --fast on
+    four 1.2 s stereo + RDS captures (tones, separation, PI), B1 bf16
+    held to its plain version at the full-width step's shape, 128-station
+    steps of that profile held to the CPU and profiled, and a 128-station
+    state saved, loaded and continued (bytes, save and load times);
+    stations default: the same CLI without --fast (B8);
+  - resume (phase 3i): `0 2 --rds --fast` and `0 2 --rds` cut into
+    --save-state and --resume halves, joined against one run;
+  - taps (phase 3j): --psd-dump (the pilot's peak), --trace-iq, --profile
+    (the receiver's ranges and the kernels in its trace, and the cost of
+    a range) and the native ring named by --stats;
+  - options (phase 3j): de-emphasis, the shared audio state and the fft
+    engine, one station in the default profile, held to the CPU.
 Every phase raises on failure, so a failure exits non-zero and prints no
 result.  The last line of stdout is {"ok": true, "device": {...}}; the
 line before it lists every kernel with its launches on the path that runs
 it (and, apart, in that path's full-width steps: 128 stations, 64 on the
-wideband paths), its error against the plain version, both times, its
+wideband paths; and its launches on the stations, resume, taps and
+options paths), its error against the plain version, both times, its
 bound on the card from this run's shapes (`roofline`) and, where one
 PyTorch call computes the same function, that call's time (phase 2c's
 entries name the lengths compared).
@@ -282,7 +296,7 @@ def kernel_device_ms(fn, reps: int, symbol: str) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if symbol in e.key:
+        if symbol in e.key and e.key not in RANGES:
             t = getattr(e, "self_device_time_total", None)
             total += e.self_cuda_time_total if t is None else t
     return total / reps / 1e3
@@ -1603,6 +1617,362 @@ def run_loop_engines(device: str, seconds: float = 1.2) -> None:
         log(f"loop engine {msg}, {secs:.2f} s wall incl. set-up")
 
 
+# ------------------------------------------------------ phases 3h-3j, 4f
+# the reference's --stations --fast profile (sdr_tpu/cli.py:404-405): the
+# bf16 front end, feedforward carriers, bf16 convs; no fused IF bank, no
+# tiled convs
+STATIONS_FAST = dict(stereo=True, rds=True, fused_frontend="bf16",
+                     pll_impl="ff", conv_dtype="bf16")
+# phase 3h's four stations: (left tone, right tone); PI 0x3000 + k
+STATION_TONES = ((1000.0, 2500.0), (700.0, 1900.0), (1300.0, 3100.0),
+                 (900.0, 2200.0))
+# the receiver's ranges that phase 3j's --profile trace must hold
+SCOPES = ("rf_frontend", "ifbank_fused_mix", "carrier_ffmix",
+          "audio_pair_kernel")
+
+
+def station_capture(k: int, seconds: float = 1.2):
+    """Phase 3h's station k (numpy u8): STATION_TONES[k] on left and right
+    and RDS groups of PI 0x3000 + k."""
+    from sdr_tpu_torch import tx
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.rds import tx as rds_tx
+    cfg = MODES[0]
+    n = int(seconds * cfg.rf_fs)
+    left, right = STATION_TONES[k]
+    bits = rds_tx.standard_group_stream(
+        pi=0x3000 + k, ps_name=f"FLEET {k} ",
+        n_groups=int(seconds * 1187.5 / 104) + 3)
+    return tx.synthesize_capture(
+        cfg, seconds=seconds, seed=k, left=tx.tone(cfg.rf_fs, left, n),
+        right=tx.tone(cfg.rf_fs, right, n),
+        rds_baseband=rds_tx.bits_to_baseband(bits, cfg.rf_fs)[:n], a_rds=0.1)
+
+
+def cli_call(argv: list[str], device: str) -> tuple[str, float]:
+    """cli.main(argv) in-process: (its stderr, wall seconds); raises on a
+    non-zero exit."""
+    from sdr_tpu_torch import cli
+    if device != "cuda":
+        argv = [*argv, "--device", device]
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}:\n"
+                             f"{err.getvalue()}")
+    return err.getvalue(), secs
+
+
+def run_cli_stations(device: str, fast: bool) -> None:
+    """Phase 3h: the CLI's --stations on four one-station stereo + RDS
+    captures of 1.2 s: every station's tones (> 20 dB), separation
+    (> 20 dB) and PI."""
+    from sdr_tpu_torch.io.wav import read_wav
+    from sdr_tpu_torch.utils.compare import stereo_separation_db, tone_snr_db
+    flag = ["--fast"] if fast else []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for k in range(len(STATION_TONES)):
+            paths.append(os.path.join(tmp, f"station{k}.u8"))
+            station_capture(k).tofile(paths[-1])
+        wav_dir = os.path.join(tmp, "wav")
+        text, secs = cli_call(["0", "2", "--rds", *flag, "--stations",
+                               ",".join(paths), "--wav-dir", wav_dir],
+                              device)
+        msgs = []
+        for k, (lt, rt) in enumerate(STATION_TONES):
+            rate, pcm = read_wav(os.path.join(wav_dir, f"station{k}.wav"))
+            left, right = pcm[:, 0].astype("f8"), pcm[:, 1].astype("f8")
+            skip = rate // 4
+            snr_l = tone_snr_db(left, rate, lt, skip=skip)
+            snr_r = tone_snr_db(right, rate, rt, skip=skip)
+            sep = stereo_separation_db(left, right, rate, lt, skip=skip)
+            m = re.search(rf"station {k} RDS final: PI=(0x[0-9a-f]+) .*"
+                          r"\((\d+) groups\)", text)
+            msg = (f"station {k}: L {snr_l:.1f} dB, R {snr_r:.1f} dB, "
+                   f"separation {sep:.1f} dB, PI "
+                   + (f"{m.group(1)} ({m.group(2)} groups)" if m
+                      else "no sync"))
+            if not (snr_l > 20.0 and snr_r > 20.0 and sep > 20.0 and m
+                    and int(m.group(1), 16) == 0x3000 + k):
+                raise AssertionError(f"cli --stations {' '.join(flag)}: "
+                                     f"{msg}\n{text}")
+            msgs.append(msg)
+    log(f"cli {' '.join(['0', '2', '--rds', *flag])} --stations (4 "
+        "captures of 1.2 s): "
+        + "; ".join(msgs) + f"; {secs:.2f} s wall incl. set-up")
+
+
+def check_frontend_at_step(rx, blk, state, name: str) -> dict:
+    """B1 in the receiver's own engine (bf16 for --stations --fast, fm
+    stored at bf16) on one full-width step's block, from the state that
+    step starts from, against its plain version: fm and the carried
+    samples within 1e-5 of max|plain| (plus one bf16 ulp for fm, the
+    float engine sums in another order), the carried u8 tail bit-equal.
+    The comparison's launches are taken back out of the path's count."""
+    import torch
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    from sdr_tpu_torch.ops.cuda.frontend_kernel import (
+        frontend_demod_reference)
+    fe, front = rx._fused_fe, state.front
+    args = (blk, front.i_tail, front.prev_i, front.prev_q)
+    launched = LAUNCHES["frontend_demod"]
+    got = fe.demod_call(*args)
+    want = frontend_demod_reference(fe, *args)
+    err = max_err(got[0], want[0], 1e-5, got[0].dtype == torch.bfloat16,
+                  f"{name} B1 fm")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{name} B1: carried tail differs from plain")
+    for g, w, what in zip(got[2:4], want[2:4], ("prev_i", "prev_q")):
+        max_err(g, w, 1e-5, False, f"{name} B1 {what}")
+    ms = cuda_ms(lambda: fe.demod_call(*args), 10)
+    plain_ms = cuda_ms(lambda: frontend_demod_reference(fe, *args), 3)
+    LAUNCHES["frontend_demod"] = launched
+    c, n = blk.shape
+    m = n // (2 * rx.cfg.rf_decim)
+    nbytes = c * n + 2 * c * 128 + c * m * got[0].element_size() + 16 * c
+    bound_ms, bound_by = roofline(nbytes, {"f32": c * m * (2 * 51 * 2 + 9)})
+    log(f"real size {name}: B1 {fe.compute_dtype}->{got[0].dtype} at the "
+        f"step's shape (C={c}, n={n}) max|err| {err:.3g} against its plain "
+        f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "c": c, "n": n}
+
+
+def same_or_one_lsb(a, b) -> str:
+    """'bit-equal' or 'within one LSB' of two float audio tensors (as s16,
+    x16384, the CLI's packing); raises beyond one LSB."""
+    import torch
+    from sdr_tpu_torch.io.stream import pack_s16
+    if a.dtype == b.dtype and torch.equal(a, b):
+        return "bit-equal"
+    d = (pack_s16(a.float()).int() - pack_s16(b.float()).int()).abs().max()
+    if d.item() > 1:
+        raise AssertionError(f"differs by {d.item()} LSB")
+    return "within one LSB"
+
+
+def checkpoint_real_size(blocks, device, profile: dict, name: str) -> None:
+    """Phase 3i at full width: a 128-station state saved after one step,
+    loaded and continued for a second step, against the uninterrupted
+    second step (bit-equal, or every output within one LSB); the state's
+    bytes and the save and load times (host clock around
+    utils/checkpoint.py's calls, the device synchronized before the
+    save)."""
+    import torch
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.utils.checkpoint import load_state, save_state
+    rx = Receiver(0, device=device, **profile)
+    c = blocks.shape[1]
+    st, _ = rx.step(rx.init_state((c,)), blocks[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(path, st)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_state(path, rx.init_state((c,)))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    _, want = rx.step(st, blocks[1])
+    _, got = rx.step(loaded, blocks[1])
+    verdict = {k: same_or_one_lsb(got[k], want[k]) for k in ("left",
+                                                            "right")}
+    soft = ("bit-equal" if torch.equal(got["rds_soft"], want["rds_soft"])
+            else "differs")
+    if soft != "bit-equal":
+        raise AssertionError(f"{name}: resumed rds_soft differs")
+    log(f"checkpoint {name} ({c} stations): state {nbytes} B on disk, save "
+        f"{save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms (host clock); "
+        f"the resumed step against the uninterrupted one: left "
+        f"{verdict['left']}, right {verdict['right']}, rds_soft {soft}")
+    del rx, st, loaded
+    torch.cuda.empty_cache()
+
+
+def run_cli_resume(device: str, fast: bool) -> None:
+    """Phase 3i through the CLI: `0 2 --rds [--fast]` on the recipe's
+    capture cut at a step boundary into a run with --save-state and one
+    with --resume; the joined audio against one uninterrupted run
+    (bit-equal, or within one LSB)."""
+    import numpy as np
+    flag = ["--fast"] if fast else []
+    common = ["0", "2", "--rds", *flag, "--blocks-per-step", "8"]
+    from sdr_tpu_torch.models.receiver import Receiver
+    rx = Receiver(0, device=device, **({
+        k: v for k, v in STEREO_PROFILE.items() if not k.startswith("fe_")}
+        if fast else DEFAULT_PROFILE))
+    cap = stereo_capture(1.2)
+    bs = rx.block_size_u8(8)
+    half = len(cap) // 2 // bs * bs
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = {"a": cap[:half], "b": cap[half:], "whole": cap}
+        for k, v in parts.items():
+            v.tofile(os.path.join(tmp, f"{k}.u8"))
+        state = os.path.join(tmp, "state.npz")
+
+        def run(part, *extra):
+            out = os.path.join(tmp, f"{part}.raw")
+            text, secs = cli_call([*common, "--in",
+                                   os.path.join(tmp, f"{part}.u8"),
+                                   "--out", out, *extra], device)
+            return np.fromfile(out, "<i2").astype(np.int64), text, secs
+
+        a, _, sa = run("a", "--save-state", state)
+        b, text, sb = run("b", "--resume", state)
+        whole, _, _ = run("whole")
+        nbytes = os.path.getsize(state)
+    if "Resumed state from" not in text:
+        raise AssertionError(f"cli {' '.join(common)} --resume:\n{text}")
+    joined = np.concatenate([a, b])
+    if joined.shape != whole.shape:
+        raise AssertionError(f"resume: {joined.shape} vs {whole.shape}")
+    d = int(np.abs(joined - whole).max())
+    if d > 1:
+        raise AssertionError(f"cli {' '.join(common)}: the resumed stream "
+                             f"differs from one run by {d} LSB")
+    log(f"cli {' '.join(common)} --save-state / --resume: {len(whole)} "
+        f"samples, the joined stream "
+        f"{'bit-equal to' if d == 0 else 'within one LSB of'} one "
+        f"uninterrupted run; state {nbytes} B; halves {sa:.2f} + {sb:.2f} s "
+        "wall incl. set-up")
+
+
+def scope_cost_us(scope, n: int = 200_000) -> float:
+    """Host microseconds `with scope("rf_frontend"):` costs with no
+    profiler running (the loop's own cost taken out)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with scope("rf_frontend"):
+            pass
+    ranged = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pass
+    bare = time.perf_counter() - t0
+    return (ranged - bare) / n * 1e6
+
+
+def run_cli_taps(device: str) -> None:
+    """Phase 3j through the CLI on the recipe's stereo capture: --psd-dump
+    (the pilot's peak near 19 kHz), --trace-iq (four traces of 512
+    samples), --profile (the trace holds the receiver's ranges and the
+    kernels' names), and --stats naming the native reader and sink."""
+    import numpy as np
+    cap = stereo_capture(1.2)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "cap.u8")
+        cap.tofile(src)
+        out = os.path.join(tmp, "a.raw")
+        base = os.path.join(tmp, "t")
+        text, secs = cli_call(["0", "2", "--fast", "--in", src, "--out", out,
+                               "--psd-dump", base + "_psd", "--trace-iq",
+                               base], device)
+        psd = np.loadtxt(base + "_psd.dat", comments="#")
+        band = (psd[:, 0] > 16.0) & (psd[:, 0] < 22.0)
+        f_peak = psd[band][np.argmax(psd[band, 1]), 0]
+        lift = psd[band, 1].max() - np.median(psd[:, 1])
+        if not (abs(f_peak - 19.0) < 0.5 and lift > 20.0):
+            raise AssertionError(f"--psd-dump: peak at {f_peak} kHz, "
+                                 f"{lift:.1f} dB over the median")
+        for name in ("i_time", "q_time", "i_filt_time", "q_filt_time"):
+            rows = np.loadtxt(f"{base}_{name}.dat", comments="#")
+            if rows.shape != (512, 2) or not np.isfinite(rows).all():
+                raise AssertionError(f"--trace-iq {name}: {rows.shape}")
+        log(f"cli 0 2 --fast --psd-dump --trace-iq: PSD peak {f_peak:.3f} "
+            f"kHz, {lift:.1f} dB over the median; four traces of 512 "
+            f"samples; {secs:.2f} s wall incl. set-up")
+        prof = os.path.join(tmp, "prof")
+        text, secs = cli_call(["0", "2", "--rds", "--fast", "--in", src,
+                               "--out", out, "--profile", prof, "--stats",
+                               "--blocks-per-step", "8"], device)
+        if "host I/O: native reader, native sink" not in text:
+            raise AssertionError(f"the CLI did not use the native ring:\n"
+                                 f"{text}")
+        events = json.loads(Path(prof, "trace.json").read_text()
+                            )["traceEvents"]
+    ranges = [e.get("name") for e in events
+              if e.get("cat") == "user_annotation"]
+    kernel_names = [e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"]
+    counts = {s: ranges.count(s) for s in SCOPES}
+    kernels = {sym: sum(sym in n for n in kernel_names) for sym in (
+        "frontend_", "ifbank_", "ffmix_kernel", "pair_")}
+    missing = [k for k, v in {**counts, **kernels}.items() if v == 0]
+    if missing:
+        raise AssertionError(f"--profile trace lacks {missing}")
+    steps = counts["rf_frontend"]
+    from torch.profiler import record_function
+    from sdr_tpu_torch.io.logger import named_scope
+    raw, cost = scope_cost_us(record_function), scope_cost_us(named_scope)
+    log(f"cli 0 2 --rds --fast --profile --stats: native reader and sink; "
+        f"the trace holds " + ", ".join(f"{k} x{v}" for k, v in
+                                         counts.items())
+        + " and the kernels " + ", ".join(f"{k}* x{v}" for k, v in
+                                           kernels.items())
+        + f"; {secs:.2f} s wall incl. set-up")
+    per_step = sum(counts.values()) / steps
+    log(f"ranges with no profiler running (host time, mean of 200000): "
+        f"record_function {raw:.3f} us, the receiver's named_scope "
+        f"{cost:.3f} us; {per_step:.0f} ranges a --fast stereo + RDS step: "
+        f"{cost * per_step:.2f} us a step ({raw * per_step:.2f} us as "
+        "record_function)")
+
+
+OPTION_PROFILES = {
+    "deemphasis_us=75": dict(DEFAULT_PROFILE, deemphasis_us=75.0),
+    "compat_shared_audio_state": dict(DEFAULT_PROFILE,
+                                      compat_shared_audio_state=True),
+    "filter_engine='fft'": dict(DEFAULT_PROFILE, filter_engine="fft"),
+}
+
+
+def run_options(device: str, steps: int = 2) -> None:
+    """Phase 3j: the Receiver's last options in the default stereo + RDS
+    profile (the sequential loop B8 on the card), one station of the
+    recipe's capture, two steps with the state carried, against the same
+    steps on the CPU: mono, left, right and rds_soft at >= 45 dB (the
+    loops carry an ulp of detector input into the acquisition transient,
+    as phase 4d's gate allows)."""
+    import torch
+    from sdr_tpu_torch.models.receiver import Receiver
+    cap = stereo_capture(0.3)
+    for name, kw in OPTION_PROFILES.items():
+        rx = Receiver(0, device=device, **kw)
+        crx = Receiver(0, device="cpu", **kw)
+        bs = rx.block_size_u8(8)
+        st, cst = rx.init_state(), crx.init_state()
+        worst = {}
+        for b in range(steps):
+            blk = torch.from_numpy(cap[b * bs:(b + 1) * bs])
+            st, out = rx.step(st, blk.to(device))
+            cst, cout = crx.step(cst, blk)
+            for key in ("mono", "left", "right", "rds_soft"):
+                s = snr_db(cout[key].double().numpy(),
+                           out[key].double().cpu().numpy())
+                worst[key] = min(worst.get(key, 1e9), s)
+        if not min(worst.values()) >= 45.0:
+            raise AssertionError(f"option {name}: card vs CPU {worst}")
+        log(f"option {name}: {steps} one-station steps of {bs} B agree with "
+            "the CPU (" + ", ".join(f"{k} {v:.1f}" for k, v in worst.items())
+            + " dB)")
+
+
+# the receivers' range names (io/logger.py named_scope): a trace holds them
+# as annotations beside the kernels, and the device time they span is
+# not a kernel's
+RANGES = {"rf_frontend", "demod", "mono_path", "ifbank_fused",
+          "ifbank_fused_mix", "carrier_ff_pair", "carrier_ff_from_sums",
+          "carrier_ffmix", "pll_joint", "audio_resample_pair",
+          "audio_pair_kernel", "channelize", "wideband_ingest"} | {
+    f"pll_{e}" for e in ("scan", "pallas", "chunked", "pallas_chunked",
+                         "ff")}
 # kernel symbol in a profiler trace -> the LAUNCHES keys that launch it
 # (the front end's and the IF bank's float and tensor-core kernels)
 KERNEL_SYMBOLS = {"frontend_": ("frontend_demod", "frontend"),
@@ -1659,9 +2029,10 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
-            # ProfilerStep* is the schedule's span of a step, not a kernel
-            if t > 0 and not e.key.startswith(("aten::", "cuda",
-                                               "ProfilerStep")):
+            # ProfilerStep* is the schedule's span of a step and RANGES
+            # the receiver's stages, not kernels
+            if t > 0 and e.key not in RANGES and not e.key.startswith(
+                    ("aten::", "cuda", "ProfilerStep")):
                 rows.append((t / steps / 1e3, e.count, e.key))
         lost = []
         for sym, keys in KERNEL_SYMBOLS.items():
@@ -1793,7 +2164,21 @@ def main() -> int:
              "wideband default": (("mfb", "pll"),
                                   ("frontend_demod", "frontend", *fused_ff,
                                    "ifbank", "pll_chunked",
-                                   "pll_chunked_multi"))}
+                                   "pll_chunked_multi")),
+             "stations --fast": (("frontend_demod",),
+                                 ("frontend", *fused_ff, "ifbank", "pll",
+                                  "pll_chunked", "pll_chunked_multi",
+                                  "mfb")),
+             "stations default": (("pll",), ("frontend_demod", *fused_ff,
+                                             "ifbank", "pll_chunked",
+                                             "pll_chunked_multi")),
+             "resume": (("frontend_demod", *fused_ff, "pll"),
+                        ("ifbank", "pll_chunked", "pll_chunked_multi")),
+             "taps": (("frontend_demod", *fused_ff), ("ifbank", "pll")),
+             "options": (("pll",), ("frontend_demod", *fused_ff, "ifbank",
+                                    "pll_chunked", "pll_chunked_multi"))}
+    new_paths = ("stations --fast", "stations default", "resume", "taps",
+                 "options")
     launches = {}
 
     def counted(path, fn):
@@ -1833,6 +2218,52 @@ def main() -> int:
         log("phase 4c: 128-station default-profile steps keep every "
             "station's separation")
         return out
+
+    def stations_fast_path():
+        t0 = time.perf_counter()
+        run_cli_stations(device, fast=True)
+        log("phase 3h: CLI --stations --fast decodes every station's tones "
+            f"and PI ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        rx = Receiver(0, device=device, **STATIONS_FAST)
+        b1 = check_frontend_at_step(rx, sblocks[0],
+                                    rx.init_state((STATIONS,)),
+                                    "stations --fast")
+        del rx
+        out = run_real_size_stereo(sblocks, device, "stations --fast",
+                                   STATIONS_FAST)
+        log("phase 4f: 128-station --stations --fast steps agree with the "
+            f"CPU ({time.perf_counter() - t0:.1f} s)")
+        checkpoint_real_size(sblocks, device, STATIONS_FAST,
+                             "stations --fast")
+        log("phase 3i: a 128-station --fast state saved, loaded and "
+            "continued")
+        return out, b1
+
+    def stations_default_path():
+        t0 = time.perf_counter()
+        run_cli_stations(device, fast=False)
+        log("phase 3h: CLI --stations (default profile) decodes every "
+            f"station's tones and PI ({time.perf_counter() - t0:.1f} s)")
+
+    def resume_path():
+        t0 = time.perf_counter()
+        run_cli_resume(device, fast=True)
+        run_cli_resume(device, fast=False)
+        log("phase 3i: CLI --save-state / --resume halves join into one "
+            f"run ({time.perf_counter() - t0:.1f} s)")
+
+    def taps_path():
+        t0 = time.perf_counter()
+        run_cli_taps(device)
+        log("phase 3j: CLI --psd-dump, --trace-iq, --profile and the native "
+            f"ring ({time.perf_counter() - t0:.1f} s)")
+
+    def options_path():
+        t0 = time.perf_counter()
+        run_options(device)
+        log("phase 3j: de-emphasis, the shared audio state and the fft "
+            f"engine agree with the CPU ({time.perf_counter() - t0:.1f} s)")
 
     def default_mode2_path():
         run_cli_stereo(device, 2, fast=False)
@@ -1894,6 +2325,12 @@ def main() -> int:
         "stereo+RDS ifbank joint",
         lambda: joint_path(IFBANK_JOINT_PROFILE, "stereo+RDS ifbank joint"))
     counted("loop engines, one station", loop_engines_path)
+    rates["stations_fast"], stations_b1 = counted("stations --fast",
+                                                  stations_fast_path)
+    counted("stations default", stations_default_path)
+    counted("resume", resume_path)
+    counted("taps", taps_path)
+    counted("options", options_path)
     del sblocks
     torch.cuda.empty_cache()
     # the wideband inputs: the CLI's two-station capture, and two steps of
@@ -1971,6 +2408,12 @@ def main() -> int:
                                           else "int8")]
                 n = bs
             bound_ms, bound_by = roofline(*kernel_work(name, STATIONS, n))
+        if name == "frontend_demod":
+            # B1 in the --stations --fast engine at that step's shape
+            extra["stations_fast_step"] = stations_b1
+        extra["new_path_launches"] = {p: launches[p][name]
+                                      for p in new_paths
+                                      if launches[p][name]}
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": launches[KERNEL_PATH[name]][name],

@@ -1,7 +1,7 @@
 """Command-line receiver: `python -m sdr_tpu_torch <mode> <channels>`.
 
-Port of sdr_tpu/cli.py (`main`, without the reference's other entry
-points).  Reference usage (src/project.cpp:392-393):
+Port of sdr_tpu/cli.py, every flag of it, plus `--device`.  Reference
+usage (src/project.cpp:392-393):
     rtl_sdr -f 102.9M -s 2.4M - | ./project 0 2 | aplay -c 2 -f S16_LE -r 48000
 Here:
     rtl_sdr ... - | python -m sdr_tpu_torch 0 2 --rds --fast | aplay -c 2 ...
@@ -16,18 +16,31 @@ and RDS the exact carrier loops (the scan engine, one sequential CUDA
 kernel launch per carrier and step on the card).  `--fast` selects the
 fused CUDA kernels (front end; with stereo and RDS also the IF bank, the
 carrier synthesis + mixers and the audio pair) and the feedforward
-carrier engine; `--exact-fast` the exact-integer front end.
+carrier engine; `--exact-fast` the exact-integer front end.  Host I/O
+goes through the native bounded-ring reader and writer threads
+(sdr_tpu_torch/native) where a host compiler built them, else through
+synchronous reads and writes; `--stats` says which ran.
 
-`--wideband FS --freqs=...` (or `--scan`) reads one wideband complex
-capture (f32, or u8 with `--wideband-u8`), channelizes the stations on
-the device (the CUDA channelizer kernel on the card, the plain mfb
-engine on --device cpu) and decodes them all, writing station<i>.wav to
-`--wav-dir`, as the reference's wideband mode does.
+Other entry points and taps, as in the reference:
+  --stations A,B,...  decode N captures in one batched step each, with
+                      live RDS per station; station<i>.wav to --wav-dir.
+  --wideband FS       channelize one wideband capture (--freqs or --scan)
+                      and decode every station; station<i>.wav.
+  --save-state/--resume   checkpoint the streaming state after the EOF
+                      flush / start from one (utils/checkpoint.py, the
+                      reference's format).
+  --psd-dump/--psd-anim   Bartlett PSDs of the demodulated IF (.dat).
+  --trace-iq BASE     the first block's I/Q before and after the channel
+                      filter (.dat).
+  --profile DIR       a torch.profiler Chrome trace of the stream loop,
+                      with the receiver's stage names, in DIR/trace.json.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -53,14 +66,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wav", default=None, help="also write a WAV file")
     p.add_argument("--blocks-per-step", type=int, default=25,
                    help="reference blocks fused per step")
+    p.add_argument("--psd-dump", default=None,
+                   help="write a Bartlett PSD .dat of the demodulated IF "
+                        "for gnuplot inspection (basename, .dat appended)")
+    p.add_argument("--psd-anim", default=None,
+                   help="write a per-block PSD .dat SERIES of the "
+                        "demodulated IF (basename; frames = gnuplot "
+                        "indices, rendered by examples/psd_anim.gnuplot)")
+    p.add_argument("--psd-anim-every", type=int, default=10,
+                   help="emit one PSD frame per N reference blocks "
+                        "(default 10)")
+    p.add_argument("--trace-iq", default=None, metavar="BASE",
+                   help="dump time-domain I/Q .dat traces of the FIRST "
+                        "block, pre- and post-channel filter (BASE_i_time, "
+                        "BASE_q_time, BASE_i_filt_time, BASE_q_filt_time; "
+                        "render with examples/iq.gnuplot)")
     p.add_argument("--stats", action="store_true",
                    help="print throughput stats to stderr")
+    p.add_argument("--save-state", default=None,
+                   help="checkpoint the streaming state on exit")
+    p.add_argument("--resume", default=None,
+                   help="resume the streaming state from a checkpoint")
     p.add_argument("--fast", action="store_true",
                    help="fast engines: fused int8 CUDA front end, "
                         "feedforward carriers (fused IF bank, synth+mix and "
                         "audio-pair kernels with stereo + RDS), bf16 convs")
     p.add_argument("--exact-fast", action="store_true",
                    help="exact-integer front end (int8x2), f32 elsewhere")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler Chrome trace of the stream "
+                        "loop to this directory (per-stage ranges "
+                        "included)")
+    p.add_argument("--stations", default=None,
+                   help="comma-separated u8 IQ capture files: decode N "
+                        "independent stations batched in one step; "
+                        "requires --wav-dir")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     p.add_argument("--wav-dir", default=None,
@@ -104,10 +144,11 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.wideband:
         return _run_wideband(args, cfg, stereo, rds, device)
+    if args.stations:
+        return _run_stations(args, cfg, stereo, rds, device)
 
     from sdr_tpu_torch.io import wav as wavio
-    from sdr_tpu_torch.io.stream import (SyncBlockReader,
-                                         interleave_stereo_s16, pack_s16)
+    from sdr_tpu_torch.io.stream import interleave_stereo_s16, pack_s16
     from sdr_tpu_torch.models.receiver import Receiver
 
     print(f"Operating in mode {args.mode}, "
@@ -120,8 +161,14 @@ def main(argv: list[str] | None = None) -> int:
         fast["fused_ifbank"] = "bf16"
     if args.exact_fast:
         fast["fused_frontend"] = "int8x2"
-    rx = Receiver(args.mode, stereo=stereo, rds=rds, device=device, **fast)
+    want_if = args.psd_dump is not None or args.psd_anim is not None
+    rx = Receiver(args.mode, stereo=stereo, rds=rds, emit_if=want_if,
+                  device=device, **fast)
     state = rx.init_state()
+    if args.resume:
+        from sdr_tpu_torch.utils.checkpoint import load_state
+        state = load_state(args.resume, state)
+        print(f"Resumed state from {args.resume}", file=sys.stderr)
     block_size = rx.block_size_u8(args.blocks_per_step)
 
     fin = sys.stdin.buffer if args.infile == "-" else open(args.infile, "rb")
@@ -132,6 +179,9 @@ def main(argv: list[str] | None = None) -> int:
     if rds:
         from sdr_tpu_torch.rds.streaming import StreamingRdsDecoder
         rds_decoder = StreamingRdsDecoder(cfg.rds_sps)
+    if_chunks: list[np.ndarray] | None = [] if args.psd_dump else None
+    psd_anim = (_PsdAnim(args.psd_anim, cfg, args.psd_anim_every)
+                if args.psd_anim else None)
 
     def drain(out):
         if stereo:
@@ -139,7 +189,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             pcm = pack_s16(out["mono"])
         pcm = pcm.cpu().numpy()
-        fout.write(pcm.astype("<i2").tobytes())
+        sink.write(pcm.astype("<i2").tobytes())
         wav_chunks.append(pcm)
         if rds_decoder is not None and rds_decoder.push(
                 out["rds_soft"].float().cpu().numpy()):
@@ -150,35 +200,46 @@ def main(argv: list[str] | None = None) -> int:
                   + (f", {rds_decoder.bits_corrected} bits corrected)"
                      if rds_decoder.bits_corrected else ")"),
                   file=sys.stderr)
+        if "fm_demod" in out:
+            if if_chunks is not None:
+                if_chunks.append(out["fm_demod"].float().cpu().numpy())
+            if psd_anim is not None:
+                psd_anim.push(out["fm_demod"])
 
     n_in = 0
     step_times: list[float] = []
     pending = None  # host drain of step k overlaps device work of step k+1
     t0 = time.perf_counter()
+    src, reader = _block_source(fin, block_size)
+    sink, writer = _audio_sink(fout)
     try:
-        src = SyncBlockReader(fin, block_size)
-        for raw in src:
-            ts = time.perf_counter()
-            state, out = rx.step(state, torch.tensor(raw).to(device))
-            step_times.append(time.perf_counter() - ts)
+        with _profiling(args.profile, device):
+            for raw in src:
+                if args.trace_iq is not None and n_in == 0:
+                    _trace_iq(args.trace_iq, raw, rx)
+                ts = time.perf_counter()
+                state, out = rx.step(state, torch.tensor(raw).to(device))
+                step_times.append(time.perf_counter() - ts)
+                if pending is not None:
+                    drain(pending)
+                pending = out
+                n_in += len(raw)
+            # EOF flush: the partial final block at the finest aligned size
+            tail = src.tail()
+            tail_n = (len(tail) // rx.block_align_u8()) * rx.block_align_u8()
+            if tail_n:
+                state, out = rx.step(
+                    state, torch.tensor(tail[:tail_n]).to(device))
+                if pending is not None:
+                    drain(pending)
+                pending = out
+                n_in += tail_n
             if pending is not None:
                 drain(pending)
-            pending = out
-            n_in += len(raw)
-        # EOF flush: the partial final block at the finest aligned size
-        tail = src.tail()
-        tail_n = (len(tail) // rx.block_align_u8()) * rx.block_align_u8()
-        if tail_n:
-            state, out = rx.step(state,
-                                 torch.tensor(tail[:tail_n]).to(device))
-            if pending is not None:
-                drain(pending)
-            pending = out
-            n_in += tail_n
-        if pending is not None:
-            drain(pending)
-        fout.flush()
     finally:
+        if reader == "native":
+            src.close()
+        sink.close()   # the native writer drains its ring and joins
         if fin is not sys.stdin.buffer:
             fin.close()
         if fout is not sys.stdout.buffer:
@@ -189,6 +250,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"processed {n_in/2:.0f} IQ samples in {elapsed:.2f}s "
               f"= {ms:.2f} MS/s ({ms*1e6/cfg.rf_fs:.1f}x real time) "
               f"on {_device_name(device)}", file=sys.stderr)
+        print(f"host I/O: {reader} reader, {writer} sink", file=sys.stderr)
         if len(step_times) > 1:
             # skip the first step (kernel build and warm-up); this is the
             # host's dispatch time per step, not the device's compute time
@@ -205,6 +267,22 @@ def main(argv: list[str] | None = None) -> int:
         frames = audio.reshape(-1, 2)[:, ::-1] if stereo else audio
         wavio.write_wav(args.wav, cfg.audio_fs, frames)
         print(f"Wrote {args.wav}", file=sys.stderr)
+    if psd_anim is not None:
+        nframes = psd_anim.close()
+        print(f"Wrote {args.psd_anim}.dat ({nframes} PSD frames; render "
+              "with examples/psd_anim.gnuplot)", file=sys.stderr)
+    if args.psd_dump and if_chunks:
+        from sdr_tpu_torch.io.logger import log_vector
+        from sdr_tpu_torch.ops.fourier import estimate_psd
+        demod = torch.from_numpy(np.concatenate(if_chunks)).to(device)
+        freq, psd = estimate_psd(demod, fs=float(cfg.if_fs))
+        log_vector(args.psd_dump, freq / 1e3, psd.cpu().numpy())
+        print(f"Wrote {args.psd_dump}.dat (Bartlett PSD of demodulated IF)",
+              file=sys.stderr)
+    if args.save_state:
+        from sdr_tpu_torch.utils.checkpoint import save_state
+        save_state(args.save_state, state)
+        print(f"Saved state to {args.save_state}", file=sys.stderr)
     if rds_decoder is not None:
         info = rds_decoder.info
         print(f"RDS final: PI={info.pi:#06x} PTY={info.pty_name!r} "
@@ -214,12 +292,34 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _profiling(directory: str | None, device: torch.device):
+    """With a directory, trace the body with torch.profiler (host ranges,
+    and the device's kernels on a CUDA device) and write a Chrome trace
+    to directory/trace.json; the reference writes a jax.profiler trace
+    there (sdr_tpu/cli.py:168-169, 199-201)."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote profiler trace to {path}", file=sys.stderr)
+
+
 def _run_wideband(args, cfg, stereo: bool, rds: bool,
                   device: torch.device) -> int:
     """Channelize a wideband complex capture into K stations and decode
     them all (models/wideband.py WidebandReceiver), streaming the file
     block-wise so captures larger than RAM work (sdr_tpu/cli.py:260-371)."""
-    import os
     from sdr_tpu_torch.io import wav as wavio
     from sdr_tpu_torch.models.receiver import Receiver
     from sdr_tpu_torch.models.wideband import WidebandReceiver
@@ -289,23 +389,26 @@ def _run_wideband(args, cfg, stereo: bool, rds: bool,
             from sdr_tpu_torch.rds.streaming import MultiStreamingRds
             mrds = MultiStreamingRds(cfg.rds_sps, len(freqs))
         audio = []
-        for out, _state in wrx.stream(file_chunks(),
-                                      blocks_per_step=args.blocks_per_step,
-                                      scan_steps=4):
-            if stereo:
-                audio.append(np.stack([out["left"].float().cpu().numpy(),
-                                       out["right"].float().cpu().numpy()],
-                                      axis=-1))
-            else:
-                audio.append(out["mono"].float().cpu().numpy())
-            if mrds is not None and "rds_soft" in out:
-                # live per-station decode as the wideband capture streams
-                for i, _groups in mrds.push(
-                        out["rds_soft"].float().cpu().numpy()):
-                    info = mrds.info(i)
-                    print(f"  {freqs[i]/1e6:+.2f} MHz RDS: PI={info.pi:#06x} "
-                          f"PS={info.ps_name!r} ({info.groups_seen} groups)",
-                          file=sys.stderr)
+        with _profiling(args.profile, device):
+            for out, _state in wrx.stream(
+                    file_chunks(), blocks_per_step=args.blocks_per_step,
+                    scan_steps=4):
+                if stereo:
+                    audio.append(np.stack(
+                        [out["left"].float().cpu().numpy(),
+                         out["right"].float().cpu().numpy()], axis=-1))
+                else:
+                    audio.append(out["mono"].float().cpu().numpy())
+                if mrds is not None and "rds_soft" in out:
+                    # live per-station decode as the wideband capture
+                    # streams
+                    for i, _groups in mrds.push(
+                            out["rds_soft"].float().cpu().numpy()):
+                        info = mrds.info(i)
+                        print(f"  {freqs[i]/1e6:+.2f} MHz RDS: "
+                              f"PI={info.pi:#06x} PS={info.ps_name!r} "
+                              f"({info.groups_seen} groups)",
+                              file=sys.stderr)
     if not audio:
         print("capture shorter than one block", file=sys.stderr)
         return 1
@@ -325,6 +428,206 @@ def _run_wideband(args, cfg, stereo: bool, rds: bool,
                    if info.pi is not None else "no sync")
             print(f"  {f/1e6:+.2f} MHz RDS final: {msg}", file=sys.stderr)
     return 0
+
+
+def _run_stations(args, cfg, stereo: bool, rds: bool,
+                  device: torch.device) -> int:
+    """Stream-decode N station captures batched in one step (channel data
+    parallelism, sdr_tpu/cli.py:374-460).
+
+    The captures are memory-mapped and fed one step at a time (bounded by
+    blocks_per_step, so captures larger than RAM work), with each
+    station's RDS decoded live as groups arrive (MultiStreamingRds).
+    Files are truncated to the shortest capture so the batch is
+    rectangular.  `--fast` here is the reference's fleet profile: the
+    bf16 front end, the feedforward carriers and bf16 convs, without the
+    fused IF bank or the tiled convs (sdr_tpu/cli.py:404-405).
+    """
+    from sdr_tpu_torch.io import wav as wavio
+    from sdr_tpu_torch.models.receiver import Receiver
+
+    paths = [p for p in args.stations.split(",") if p]
+    if not args.wav_dir:
+        print("--stations requires --wav-dir", file=sys.stderr)
+        return 1
+    os.makedirs(args.wav_dir, exist_ok=True)
+    maps = [np.memmap(p, dtype=np.uint8, mode="r") for p in paths]
+    k = len(paths)
+    n = min(m.shape[0] for m in maps)
+    print(f"Decoding {k} stations x {n//2} IQ samples (streaming, batched)",
+          file=sys.stderr)
+    fast = (dict(fused_frontend="bf16", pll_impl="ff", conv_dtype="bf16")
+            if args.fast else {})
+    rx = Receiver(args.mode, stereo=stereo, rds=rds, device=device, **fast)
+    bs = rx.block_size_u8(args.blocks_per_step)
+    if bs > n:
+        bs = (n // rx.block_align_u8()) * rx.block_align_u8()
+        if bs == 0:
+            print("captures shorter than one block", file=sys.stderr)
+            return 1
+    state = rx.init_state((k,))
+    mrds = None
+    if rds:
+        from sdr_tpu_torch.rds.streaming import MultiStreamingRds
+        mrds = MultiStreamingRds(cfg.rds_sps, k)
+    audio_chunks: list[np.ndarray] = []
+
+    def drain(out):
+        if stereo:
+            audio_chunks.append(np.stack(
+                [out["left"].float().cpu().numpy(),
+                 out["right"].float().cpu().numpy()], axis=-1))
+        else:
+            audio_chunks.append(out["mono"].float().cpu().numpy())
+        if mrds is not None:
+            # live per-station decode: groups print as they arrive
+            for i, _groups in mrds.push(out["rds_soft"].float().cpu().numpy()):
+                info = mrds.info(i)
+                print(f"  station {i} RDS: PI={info.pi:#06x} "
+                      f"PS={info.ps_name!r} RT={info.radio_text.rstrip()!r} "
+                      f"({info.groups_seen} groups)", file=sys.stderr)
+
+    pending = None  # host slicing and drain overlap the device's step
+    with _profiling(args.profile, device):
+        for off in range(0, n - bs + 1, bs):
+            batch = np.stack([m[off:off + bs] for m in maps])
+            state, out = rx.step(state, torch.from_numpy(batch).to(device))
+            if pending is not None:
+                drain(pending)
+            pending = out
+        if pending is not None:
+            drain(pending)
+
+    full = np.concatenate(audio_chunks, axis=1)
+    for i, path in enumerate(paths):
+        # the reference's expression, on the host: no clip (a sample out
+        # of range wraps as numpy's cast does)
+        pcm = np.where(np.isnan(full[i]), 0.0, full[i] * 16384.0
+                       ).astype(np.int16)
+        dst = os.path.join(args.wav_dir, f"station{i}.wav")
+        wavio.write_wav(dst, cfg.audio_fs, pcm)
+        print(f"  station {i} ({os.path.basename(path)}) -> {dst}",
+              file=sys.stderr)
+    if mrds is not None:
+        for i in range(k):
+            info = mrds.info(i)
+            msg = (f"PI={info.pi:#06x} PS={info.ps_name!r} "
+                   f"({info.groups_seen} groups)"
+                   if info.pi is not None else "no sync")
+            print(f"  station {i} RDS final: {msg}", file=sys.stderr)
+    return 0
+
+
+def _trace_iq(base: str, raw: np.ndarray, rx) -> None:
+    """Write 4 time-domain .dat traces of one u8 block: decoded I/Q before
+    the channel filter and decimated I/Q after it (the reference's
+    stage-trace workflow, src/logfunc.cpp:23-43 feeding data/iq.gnuplot).
+
+    The filtered trace is computed with the float32 resampler from a zero
+    tail (first-block semantics) on the receiver's device, whatever engine
+    the stream runs: a debug tap, not part of the audio path.
+    """
+    from sdr_tpu_torch.io.logger import log_vector
+    from sdr_tpu_torch.ops import firdes
+    from sdr_tpu_torch.ops.resample import PolyphaseResampler
+
+    n_show = 512  # samples per trace, like the reference's 512-pt window
+    i_raw = (raw[0::2].astype(np.float32) - 128.0) / 128.0
+    q_raw = (raw[1::2].astype(np.float32) - 128.0) / 128.0
+    idx = np.arange(min(n_show, len(i_raw)))
+    log_vector(f"{base}_i_time", idx, i_raw[: len(idx)])
+    log_vector(f"{base}_q_time", idx, q_raw[: len(idx)])
+    cfg = rx.cfg
+    rf = PolyphaseResampler(
+        firdes.lowpass(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps, 1), 1,
+        cfg.rf_decim, device=rx.device)
+    i_ds, _ = rf(torch.from_numpy(i_raw).to(rx.device), rf.init_state())
+    q_ds, _ = rf(torch.from_numpy(q_raw).to(rx.device), rf.init_state())
+    i_ds, q_ds = i_ds.cpu().numpy(), q_ds.cpu().numpy()
+    idx_f = np.arange(min(n_show, i_ds.shape[-1]))
+    log_vector(f"{base}_i_filt_time", idx_f, i_ds[: len(idx_f)])
+    log_vector(f"{base}_q_filt_time", idx_f, q_ds[: len(idx_f)])
+    print(f"Wrote {base}_{{i,q}}_time.dat + {base}_{{i,q}}_filt_time.dat "
+          "(render with examples/iq.gnuplot)", file=sys.stderr)
+
+
+def _block_source(fin, block_size: int):
+    """(reader, name): the native bounded-ring reader thread where the
+    runtime built and the input has a file descriptor (backpressure + I/O
+    overlap, sdr_tpu_torch/native), else synchronous reads."""
+    from sdr_tpu_torch import native
+    from sdr_tpu_torch.io.stream import SyncBlockReader
+    try:
+        fd = fin.fileno()
+    except (AttributeError, OSError):
+        fd = None
+    if fd is not None and native.available():
+        return native.BlockReader(fd, block_size), "native"
+    return SyncBlockReader(fin, block_size), "sync"
+
+
+class _SyncSink:
+    """Synchronous audio sink where the native runtime is absent."""
+
+    def __init__(self, fout):
+        self._fout = fout
+
+    def write(self, data: bytes):
+        self._fout.write(data)
+
+    def close(self):
+        self._fout.flush()
+
+
+def _audio_sink(fout):
+    """(sink, name): the native off-thread writer where available (a
+    bounded ring drained by a C++ thread, so write latency never stalls
+    the device-feed loop, src/project.cpp:195), else synchronous writes."""
+    from sdr_tpu_torch import native
+    try:
+        fd = fout.fileno()
+    except (AttributeError, OSError):
+        fd = None
+    if fd is not None and native.available():
+        fout.flush()  # anything buffered goes out before raw-fd writes
+        return native.BlockWriter(fd), "native"
+    return _SyncSink(fout), "sync"
+
+
+class _PsdAnim:
+    """Per-block PSD frame emitter (model/fmMonoAnim.py): one Bartlett PSD
+    of the demodulated IF every `every` reference blocks, computed on the
+    device and appended to a gnuplot index-addressable .dat series
+    (io/logger.py PsdAnimWriter)."""
+
+    def __init__(self, base: str, cfg, every: int):
+        self.base = base
+        self.every = max(1, every)
+        self.block_if = cfg.block_size_u8 // (2 * cfg.rf_decim)
+        self.fs = float(cfg.if_fs)
+        self.count = 0
+        self.writer = None
+
+    def push(self, fm_demod: torch.Tensor) -> None:
+        from sdr_tpu_torch.io.logger import PsdAnimWriter
+        from sdr_tpu_torch.ops.fourier import estimate_psd
+        nb = fm_demod.shape[-1] // self.block_if
+        for b in range(nb):
+            idx = self.count + b
+            if idx % self.every:
+                continue
+            seg = fm_demod[b * self.block_if:(b + 1) * self.block_if]
+            freq, psd = estimate_psd(seg.float(), fs=self.fs)
+            if self.writer is None:
+                self.writer = PsdAnimWriter(self.base, freq / 1e3)
+            self.writer.append(psd.cpu().numpy(), label=f"block {idx}")
+        self.count += nb
+
+    def close(self) -> int:
+        if self.writer is None:
+            return 0
+        self.writer.close()
+        return self.writer.frames
 
 
 def _device_name(device: torch.device) -> str:

@@ -8,14 +8,20 @@ Port of sdr_tpu/models/receiver.py.  The chain per block:
     rds:    fm_demod --BPF 54-60k--> channel --(square, BPF 113.5-114.5k,
             carrier 114k scale .5)--> 57k carrier --mixer--> baseband
             --LPF 3k + U/D resample--> SPS*2375 --RRC--> soft waveform
-Ported: the mono path in every engine, and the stereo and RDS branches
-on every carrier engine: the loops (scan, chunked and their Pallas forms,
-compat_pll) and the feedforward estimator.  The hot stages are CUDA
-kernels (ops/cuda/): the fused front end, the fused IF bank (four streams
-for the loops, mix sums for the estimator), the carrier loops, the fused
-synthesis and the audio pair; the rest is plain PyTorch.  PyTorch runs
-eagerly, so `run` is a Python loop over blocks where the reference scans.
-Independent stations batch over leading axes of the u8 block.
+Every option of the reference's Receiver is ported: the mono path in
+every engine, the stereo and RDS branches on every carrier engine (the
+loops: scan, chunked and their Pallas forms, compat_pll; the feedforward
+estimator), both filter engines (direct and fft), de-emphasis and the
+shared audio state.  The hot stages are CUDA kernels (ops/cuda/): the
+fused front end, the fused IF bank (four streams for the loops, mix sums
+for the estimator), the carrier loops, the fused synthesis and the audio
+pair; the rest is plain PyTorch (the fft engine on torch.fft).  PyTorch
+runs eagerly, so `run` is a Python loop over blocks where the reference
+scans.  Independent stations batch over leading axes of the u8 block.
+The stages carry the reference's profiler scope names as ranges in
+torch.profiler traces (io/logger.py `named_scope`: rf_frontend, demod,
+mono_path, ifbank_fused, carrier_ffmix, pll_<impl>, audio_pair_kernel,
+...), opened only while a profiler records.
 
 The reference's TPU-only choices map as follows: `conv_engine='tiled'`
 picks a TPU lowering of the same FIR, so both engines run one conv here
@@ -32,11 +38,14 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.config import ModeConfig, get_mode
+from sdr_tpu_torch.io.logger import named_scope as scope
 from sdr_tpu_torch.io.stream import decode_u8_iq
 from sdr_tpu_torch.models.state import (FrontEndState, MonoState, RdsState,
                                         ReceiverState, StereoState)
 from sdr_tpu_torch.ops import firdes
 from sdr_tpu_torch.ops.demod import fm_arctan, fm_discriminator
+from sdr_tpu_torch.ops.fft_conv import OverlapSaveFIR
+from sdr_tpu_torch.ops.iir import deemphasis_alpha, first_order_iir
 from sdr_tpu_torch.ops.pll import (pll, pll_chunked, pll_feedforward,
                                    pll_feedforward_from_sums,
                                    pll_feedforward_multi,
@@ -89,11 +98,23 @@ class Receiver:
            both mixers as one CUDA kernel (ops/cuda/ffmix_kernel.py); with
            conv_engine='tiled' in the integer-ratio modes it also brings
            the audio-pair kernel (ops/cuda/audio_kernel.py).
+           With compat_shared_audio_state it is not used (the
+           reference's rule: the mono resample is not deferred then).
       conv_engine: 'conv' | 'tiled'; conv_dtype: 'f32' | 'bf16'.
+      filter_engine: 'direct' (polyphase conv) | 'fft' (overlap-save on
+           torch.fft, ops/fft_conv.py, for every resampling FIR but the
+           RDS resampler; the U > 1 stages of modes 2/3 by spectral
+           replication).  The fused IF bank needs 'direct'.
+      deemphasis_us: FM de-emphasis time constant (75 Americas, 50
+           Europe) applied to the audio outputs, None = off.  In stereo
+           it applies to left and right but not to 'mono' (the
+           reference's rule).
+      compat_shared_audio_state: in stereo, the stereo audio resample
+           continues the mono resample's tail (the reference's defect,
+           src/project.cpp:146,172), and stereo_audio_tail stays as it
+           was.
       stereo_phase_adjust: radians added to the 38 kHz carrier phase.
       device: where the state lives and the chain runs.
-    filter_engine='fft', deemphasis_us and compat_shared_audio_state raise
-    NotImplementedError naming their ROADMAP.md item.
     """
 
     def __init__(self, mode: int | ModeConfig = 0, *, stereo: bool = False,
@@ -121,17 +142,8 @@ class Receiver:
         if pll_impl not in ("scan", "pallas", "chunked", "pallas_chunked",
                             "ff"):
             raise ValueError(f"pll_impl {pll_impl!r}")
-        if filter_engine != "direct":
-            raise NotImplementedError(
-                "filter_engine='fft' is not ported yet "
-                "(ROADMAP.md queue A item 9)")
-        if deemphasis_us is not None:
-            raise NotImplementedError(
-                "de-emphasis is not ported yet (ROADMAP.md queue A item 7)")
-        if compat_shared_audio_state and stereo:
-            raise NotImplementedError(
-                "compat_shared_audio_state is not ported yet "
-                "(ROADMAP.md queue A item 7)")
+        if filter_engine not in ("direct", "fft"):
+            raise ValueError(f"filter_engine {filter_engine!r}")
         if demod not in ("discriminator", "arctan"):
             raise ValueError(f"demod {demod!r}")
         if conv_engine not in ("conv", "tiled"):
@@ -155,15 +167,25 @@ class Receiver:
         self.compat_pll = bool(compat_pll)
         self.pll_wrap_phase = bool(pll_wrap_phase) and not compat_pll
         self.stereo_phase_adjust = float(stereo_phase_adjust)
+        self.filter_engine = filter_engine
+        self.compat_shared_audio_state = bool(compat_shared_audio_state)
+        self.deemph_alpha = (None if deemphasis_us is None else
+                             deemphasis_alpha(cfg.audio_fs, deemphasis_us))
         self.device = torch.device(device)
         cdt = torch.bfloat16 if conv_dtype == "bf16" else torch.float32
         # the tiled engine stores its input and tail at its compute dtype
         store = cdt if conv_engine == "tiled" else None
         if_fs = cfg.if_fs
 
-        def dec_filter(coeff, down=1, up=1):
+        def poly(coeff, down=1, up=1):
             return PolyphaseResampler(coeff, up, down, compute_dtype=cdt,
                                       store_dtype=store, device=self.device)
+
+        def dec_filter(coeff, down=1, up=1):
+            """Resampling FIR in the selected engine."""
+            if filter_engine == "fft":
+                return OverlapSaveFIR(coeff, down, up, device=self.device)
+            return poly(coeff, down, up)
 
         rf_coeff = firdes.lowpass(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps, 1)
         audio_coeff = firdes.lowpass(if_fs * cfg.audio_interp, cfg.audio_fc,
@@ -188,14 +210,19 @@ class Receiver:
         self.audio_resampler = dec_filter(audio_coeff, cfg.audio_decim,
                                           cfg.audio_interp)
 
-        # IF band-pass stages reading fm_demod: one conv for all of them
+        # IF band-pass stages reading fm_demod: with the direct engine one
+        # conv for all of them, with the fft engine one filter each
         self.if_bpf3 = self.stereo_bpf = None
+        self.channel_filter = self.carrier_filter = None
         if stereo:
             chan_coeff = firdes.bandpass(if_fs, cfg.stereo_lo, cfg.stereo_hi,
                                          cfg.bp_taps)
             pilot_coeff = firdes.bandpass(if_fs, cfg.pilot_lo, cfg.pilot_hi,
                                           cfg.bp_taps)
-            if rds:
+            if filter_engine == "fft":
+                self.channel_filter = dec_filter(chan_coeff)
+                self.carrier_filter = dec_filter(pilot_coeff)
+            elif rds:
                 rds_chan3 = firdes.bandpass(if_fs, cfg.rds_lo, cfg.rds_hi,
                                             cfg.bp_taps)
                 self.if_bpf3 = MultiFIR([chan_coeff, pilot_coeff, rds_chan3],
@@ -210,7 +237,7 @@ class Receiver:
         # streams for the loop engines
         self._ifbank = None
         self._ifbank_mix = False
-        if fused_ifbank and stereo and rds:
+        if fused_ifbank and stereo and rds and filter_engine == "direct":
             from sdr_tpu_torch.ops.cuda.ifbank_kernel import (FusedIFBank,
                                                               FusedIFBankMix)
             bank_coeffs = (
@@ -243,9 +270,11 @@ class Receiver:
         self._post_dtype = (torch.bfloat16 if self._mat_bf16_post
                             else torch.float32)
         self._fused_synth = bool(fused_synth) and self._ifbank_mix
-        # the audio-pair kernel: integer-ratio modes only
+        # the audio-pair kernel: integer-ratio modes only, and not with the
+        # shared audio state, whose mono resample is not deferred
         self._audio_pair = None
         if (self._fused_synth and conv_engine == "tiled"
+                and not self.compat_shared_audio_state
                 and cfg.audio_interp == 1 and cfg.audio_taps <= 129):
             from sdr_tpu_torch.ops.cuda.audio_kernel import PairDecimFIR
             self._audio_pair = PairDecimFIR(
@@ -264,7 +293,7 @@ class Receiver:
             self.rds_channel_filter = (None if self.if_bpf3 is not None
                                        else dec_filter(rds_chan))
             self.rds_carrier_filter = dec_filter(rds_carr)
-            self.rds_resampler = dec_filter(rds_lpf, d, u)
+            self.rds_resampler = poly(rds_lpf, d, u)
             self.rds_rrc = dec_filter(rrc)
             # group-delay alignment of the channel path against the
             # square -> BPF(51 taps) -> carrier path (spec Fig 10 all-pass)
@@ -299,10 +328,14 @@ class Receiver:
         mono = MonoState(audio_tail, zeros())
         stereo = None
         if self.stereo:
+            ca_tail = zeros((0,))
             if self._ifbank is not None:
                 # one carried raw-fm context, in the fm stream's dtype
                 ch_tail = self._ifbank.init_state(batch_shape).to(
                     self._fm_dtype)
+            elif self.channel_filter is not None:
+                ch_tail = self.channel_filter.init_state(batch_shape)
+                ca_tail = self.carrier_filter.init_state(batch_shape)
             else:
                 # the reference starts this tail at float32 and carries it
                 # in the fm stream's dtype from the first step on; here it
@@ -310,7 +343,7 @@ class Receiver:
                 bpf = self.if_bpf3 or self.stereo_bpf
                 ch_tail = bpf.init_state(batch_shape).to(self._fm_dtype)
             stereo = StereoState(
-                channel_tail=ch_tail, carrier_tail=zeros((0,)),
+                channel_tail=ch_tail, carrier_tail=ca_tail,
                 pll=pll_init(batch_shape, self.device),
                 mono_delay=zeros((self.cfg.mono_delay,)),
                 stereo_audio_tail=(
@@ -343,40 +376,47 @@ class Receiver:
         Outputs: 'mono' always; 'left'/'right' when stereo; 'rds_soft' (RRC
         output at SPS*2375) when rds."""
         if self.fused_frontend and self._fuse_demod:
-            fm_demod, i_tail, prev_i, prev_q, psum = self._fused_fe.demod_call(
-                iq_u8, state.front.i_tail, state.front.prev_i,
-                state.front.prev_q)
+            with scope("rf_frontend"):
+                fm_demod, i_tail, prev_i, prev_q, psum = (
+                    self._fused_fe.demod_call(iq_u8, state.front.i_tail,
+                                              state.front.prev_i,
+                                              state.front.prev_q))
             front = FrontEndState(i_tail, state.front.q_tail, prev_i, prev_q)
             rssi_power = (psum / fm_demod.shape[-1]
                           if self.emit_rssi else None)
             return self._post_demod(state, fm_demod, front, rssi_power)
-        if self.fused_frontend:
-            i_ds, q_ds, i_tail = self._fused_fe(iq_u8, state.front.i_tail)
-            q_tail = state.front.q_tail
-        else:
-            i_raw, q_raw = decode_u8_iq(iq_u8)
-            i_ds, i_tail = self.rf_resampler(i_raw, state.front.i_tail)
-            q_ds, q_tail = self.rf_resampler(q_raw, state.front.q_tail)
+        with scope("rf_frontend"):
+            if self.fused_frontend:
+                i_ds, q_ds, i_tail = self._fused_fe(iq_u8,
+                                                    state.front.i_tail)
+                q_tail = state.front.q_tail
+            else:
+                i_raw, q_raw = decode_u8_iq(iq_u8)
+                i_ds, i_tail = self.rf_resampler(i_raw, state.front.i_tail)
+                q_ds, q_tail = self.rf_resampler(q_raw, state.front.q_tail)
         return self._finish_step(state, i_ds, q_ds, i_tail, q_tail)
 
     def step_iq(self, state: ReceiverState, i_raw: torch.Tensor,
                 q_raw: torch.Tensor
                 ) -> tuple[ReceiverState, dict[str, torch.Tensor]]:
         """Like step() but on already-decoded float I/Q at the RF rate."""
-        i_ds, i_tail = self.rf_resampler(i_raw, state.front.i_tail)
-        q_ds, q_tail = self.rf_resampler(q_raw, state.front.q_tail)
+        with scope("rf_frontend"):
+            i_ds, i_tail = self.rf_resampler(i_raw, state.front.i_tail)
+            q_ds, q_tail = self.rf_resampler(q_raw, state.front.q_tail)
         return self._finish_step(state, i_ds, q_ds, i_tail, q_tail)
 
     def _finish_step(self, state, i_ds, q_ds, i_tail, q_tail):
-        if self.demod == "arctan":
-            # prev_i slot carries the phase; prev_q is unused
-            fm_demod, prev_phase = fm_arctan(i_ds, q_ds, state.front.prev_i)
-            front = FrontEndState(i_tail, q_tail, prev_phase,
-                                  state.front.prev_q)
-        else:
-            fm_demod, prev_i, prev_q = fm_discriminator(
-                i_ds, q_ds, state.front.prev_i, state.front.prev_q)
-            front = FrontEndState(i_tail, q_tail, prev_i, prev_q)
+        with scope("demod"):
+            if self.demod == "arctan":
+                # prev_i slot carries the phase; prev_q is unused
+                fm_demod, prev_phase = fm_arctan(i_ds, q_ds,
+                                                 state.front.prev_i)
+                front = FrontEndState(i_tail, q_tail, prev_phase,
+                                      state.front.prev_q)
+            else:
+                fm_demod, prev_i, prev_q = fm_discriminator(
+                    i_ds, q_ds, state.front.prev_i, state.front.prev_q)
+                front = FrontEndState(i_tail, q_tail, prev_i, prev_q)
         rssi_power = (torch.mean(i_ds * i_ds + q_ds * q_ds, dim=-1)
                       if self.emit_rssi else None)
         return self._post_demod(state, fm_demod, front, rssi_power)
@@ -388,11 +428,23 @@ class Receiver:
             outputs["rssi_db"] = 10.0 * torch.log10(rssi_power + 1e-12)
         if self.emit_if:
             outputs["fm_demod"] = fm_demod
-        if not self.stereo:
-            mono_audio, audio_tail = self.audio_resampler(
-                fm_demod, state.mono.audio_tail)
+        # in stereo the mono resample is deferred and batched with the
+        # stereo one (the same filter bank), unless the two share a tail or
+        # the fft engine runs (reference receiver.py:570-572)
+        defer_mono = (self.stereo and not self.compat_shared_audio_state
+                      and isinstance(self.audio_resampler,
+                                     PolyphaseResampler))
+        mono_audio = audio_tail = None
+        if not defer_mono:
+            with scope("mono_path"):
+                mono_audio, audio_tail = self.audio_resampler(
+                    fm_demod, state.mono.audio_tail)
+        deemph = state.mono.deemph
+        if self.deemph_alpha is not None and not self.stereo:
+            outputs["mono"], deemph = first_order_iir(
+                mono_audio, deemph, alpha=self.deemph_alpha)
+        elif not defer_mono:
             outputs["mono"] = mono_audio
-            mono = MonoState(audio_tail=audio_tail, deemph=state.mono.deemph)
         rds_state = None
         if self.stereo or self.rds:
             channel, rds_channel, carriers = self._if_bands(state, fm_demod)
@@ -400,36 +452,55 @@ class Receiver:
             rds_state, outputs["rds_soft"] = self._rds(state.rds, rds_channel,
                                                        carriers)
         if not self.stereo:
-            return ReceiverState(front=front, mono=mono,
+            return ReceiverState(front=front, mono=MonoState(audio_tail,
+                                                             deemph),
                                  rds=rds_state), outputs
         st = state.stereo
         mixed = carriers["mixed"]
         if mixed is None:
             mixed = mixer(channel, carriers["nco_s"])
-        if self._audio_pair is not None:
+        stereo_audio_tail = st.stereo_audio_tail
+        if self.compat_shared_audio_state:
+            # the reference's defect: the stereo resample continues the
+            # mono tail
+            stereo_audio, audio_tail = self.audio_resampler(mixed,
+                                                            audio_tail)
+        elif self._audio_pair is not None:
             # both IF->audio FIRs in one CUDA launch
-            mono_audio, stereo_audio, audio_tail, stereo_audio_tail = (
-                self._audio_pair(fm_demod, mixed, state.mono.audio_tail,
-                                 st.stereo_audio_tail))
-        else:
+            with scope("audio_pair_kernel"):
+                mono_audio, stereo_audio, audio_tail, stereo_audio_tail = (
+                    self._audio_pair(fm_demod, mixed, state.mono.audio_tail,
+                                     st.stereo_audio_tail))
+            outputs["mono"] = mono_audio
+        elif defer_mono:
             # one conv for both IF->audio resamples (same filter bank)
-            pair, pair_tails = self.audio_resampler(
-                torch.stack([fm_demod, mixed.to(fm_demod.dtype)]),
-                torch.stack([state.mono.audio_tail, st.stereo_audio_tail]))
+            with scope("audio_resample_pair"):
+                pair, pair_tails = self.audio_resampler(
+                    torch.stack([fm_demod, mixed.to(fm_demod.dtype)]),
+                    torch.stack([state.mono.audio_tail,
+                                 st.stereo_audio_tail]))
             mono_audio, stereo_audio = pair[0], pair[1]
             audio_tail, stereo_audio_tail = pair_tails[0], pair_tails[1]
-        outputs["mono"] = mono_audio
+            outputs["mono"] = mono_audio
+        else:
+            stereo_audio, stereo_audio_tail = self.stereo_audio_resampler(
+                mixed, st.stereo_audio_tail)
         # delayed mono against the BPF group delay (src/project.cpp:152-159)
         mono_shift, mono_delay = delay_line(mono_audio, st.mono_delay)
-        outputs["left"], outputs["right"] = lr_matrix(mono_shift,
-                                                      stereo_audio)
-        stereo_state = StereoState(carriers["channel_tail"], st.carrier_tail,
+        left, right = lr_matrix(mono_shift, stereo_audio)
+        deemph_l, deemph_r = st.deemph_l, st.deemph_r
+        if self.deemph_alpha is not None:
+            left, deemph_l = first_order_iir(left, deemph_l,
+                                             alpha=self.deemph_alpha)
+            right, deemph_r = first_order_iir(right, deemph_r,
+                                              alpha=self.deemph_alpha)
+        outputs["left"], outputs["right"] = left, right
+        stereo_state = StereoState(carriers["channel_tail"],
+                                   carriers["carrier_tail"],
                                    carriers["pll_s"], mono_delay,
-                                   stereo_audio_tail, st.deemph_l,
-                                   st.deemph_r)
-        mono = MonoState(audio_tail=audio_tail, deemph=state.mono.deemph)
-        return ReceiverState(front=front, mono=mono, stereo=stereo_state,
-                             rds=rds_state), outputs
+                                   stereo_audio_tail, deemph_l, deemph_r)
+        return ReceiverState(front=front, mono=MonoState(audio_tail, deemph),
+                             stereo=stereo_state, rds=rds_state), outputs
 
     def _if_bands(self, state, fm_demod):
         """The IF band-pass stages and carrier recovery.  Returns (channel,
@@ -444,7 +515,8 @@ class Receiver:
         adj = self.stereo_phase_adjust
         odt = self._post_dtype
         c = dict(mixed=None, baseband=None, delay=None, nco_s=None,
-                 nco_r=None, pll_s=None, pll_r=None, channel_tail=None)
+                 nco_r=None, pll_s=None, pll_r=None, channel_tail=None,
+                 carrier_tail=None)
         channel = rds_channel = pilot = rds_carrier_in = None
         rs = state.rds
         if self.rds:
@@ -452,19 +524,28 @@ class Receiver:
             c["rds_carrier_tail"] = rs.carrier_tail
         if self.stereo:
             st = state.stereo
+            c["carrier_tail"] = st.carrier_tail
             if self._ifbank_mix:
-                (channel, rds_channel, zp, zr,
-                 c["channel_tail"]) = self._ifbank.mix_call(fm_demod,
-                                                            st.channel_tail)
+                with scope("ifbank_fused_mix"):
+                    (channel, rds_channel, zp, zr,
+                     c["channel_tail"]) = self._ifbank.mix_call(
+                         fm_demod, st.channel_tail)
             elif self._ifbank is not None:
-                (channel, pilot, rds_channel, rds_carrier_in,
-                 c["channel_tail"]) = self._ifbank(fm_demod, st.channel_tail)
+                with scope("ifbank_fused"):
+                    (channel, pilot, rds_channel, rds_carrier_in,
+                     c["channel_tail"]) = self._ifbank(fm_demod,
+                                                       st.channel_tail)
             elif self.if_bpf3 is not None:
                 (channel, pilot, rds_channel), c["channel_tail"] = (
                     self.if_bpf3(fm_demod, st.channel_tail))
-            else:
+            elif self.stereo_bpf is not None:
                 (channel, pilot), c["channel_tail"] = self.stereo_bpf(
                     fm_demod, st.channel_tail)
+            else:
+                channel, c["channel_tail"] = self.channel_filter(
+                    fm_demod, st.channel_tail)
+                pilot, c["carrier_tail"] = self.carrier_filter(
+                    fm_demod, st.carrier_tail)
         if self.rds and rds_channel is None:
             # channel extraction 54-60 kHz (reference src/project.cpp:245)
             rds_channel, c["rds_channel_tail"] = self.rds_channel_filter(
@@ -477,61 +558,67 @@ class Receiver:
         if self._fused_synth:
             # estimate only (per-window math), then one CUDA pass
             # synthesizes both carriers, delays the RDS channel and mixes
-            window = self._ifbank.window
-            params_s, c["pll_s"] = pll_ff_params_from_sums(
-                *zp, st.pll, freq=pilot_freq, fs=fs, n=n_if, nco_scale=2.0,
-                window=window)
-            params_r, c["pll_r"] = pll_ff_params_from_sums(
-                *zr, rs.pll, freq=rds_freq, fs=fs, n=n_if, nco_scale=0.5,
-                window=window)
             from sdr_tpu_torch.ops.cuda.ffmix_kernel import ffmix
-            c["mixed"], c["baseband"] = ffmix(
-                channel, rds_channel, rs.delay, params_s, params_r, n=n_if,
-                window=window, pilot_freq=pilot_freq, rds_freq=rds_freq,
-                fs=fs, delay=self.rds_delay, phase_adjust=adj,
-                out_dtype=odt)
+            window = self._ifbank.window
+            with scope("carrier_ffmix"):
+                params_s, c["pll_s"] = pll_ff_params_from_sums(
+                    *zp, st.pll, freq=pilot_freq, fs=fs, n=n_if,
+                    nco_scale=2.0, window=window)
+                params_r, c["pll_r"] = pll_ff_params_from_sums(
+                    *zr, rs.pll, freq=rds_freq, fs=fs, n=n_if,
+                    nco_scale=0.5, window=window)
+                c["mixed"], c["baseband"] = ffmix(
+                    channel, rds_channel, rs.delay, params_s, params_r,
+                    n=n_if, window=window, pilot_freq=pilot_freq,
+                    rds_freq=rds_freq, fs=fs, delay=self.rds_delay,
+                    phase_adjust=adj, out_dtype=odt)
             c["delay"] = rds_channel[..., -128:].clone()
         elif self._ifbank_mix:
             window = self._ifbank.window
-            c["nco_s"], c["pll_s"] = pll_feedforward_from_sums(
-                *zp, st.pll, freq=pilot_freq, fs=fs, n=n_if, nco_scale=2.0,
-                phase_adjust=adj, window=window, out_dtype=odt)
-            c["nco_r"], c["pll_r"] = pll_feedforward_from_sums(
-                *zr, rs.pll, freq=rds_freq, fs=fs, n=n_if, nco_scale=0.5,
-                window=window, out_dtype=odt)
+            with scope("carrier_ff_from_sums"):
+                c["nco_s"], c["pll_s"] = pll_feedforward_from_sums(
+                    *zp, st.pll, freq=pilot_freq, fs=fs, n=n_if,
+                    nco_scale=2.0, phase_adjust=adj, window=window,
+                    out_dtype=odt)
+                c["nco_r"], c["pll_r"] = pll_feedforward_from_sums(
+                    *zr, rs.pll, freq=rds_freq, fs=fs, n=n_if,
+                    nco_scale=0.5, window=window, out_dtype=odt)
         elif self._joint_pll:
             # both loops in one chunked launch, per-lane parameters
             from sdr_tpu_torch.ops.cuda.pll_kernel import (
                 pll_pallas_chunked_multi)
-            (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
-                pll_pallas_chunked_multi(
-                    (pilot, rds_carrier_in), (st.pll, rs.pll),
-                    params=((pilot_freq, fs, 2.0, adj, 0.01),
-                            (rds_freq, fs, 0.5, 0.0,
-                             self.rds_pll_bandwidth)),
-                    chunk=self.pll_chunk))
+            with scope("pll_joint"):
+                (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
+                    pll_pallas_chunked_multi(
+                        (pilot, rds_carrier_in), (st.pll, rs.pll),
+                        params=((pilot_freq, fs, 2.0, adj, 0.01),
+                                (rds_freq, fs, 0.5, 0.0,
+                                 self.rds_pll_bandwidth)),
+                        chunk=self.pll_chunk))
         elif (self.stereo and self.rds and self.pll_impl == "ff"
               and not self.compat_pll):
-            (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
-                pll_feedforward_multi(
-                    (pilot, rds_carrier_in), (st.pll, rs.pll),
-                    params=((pilot_freq, fs, 2.0, adj),
-                            (rds_freq, fs, 0.5, 0.0)),
-                    window=self.pll_window, out_dtype=odt))
+            with scope("carrier_ff_pair"):
+                (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
+                    pll_feedforward_multi(
+                        (pilot, rds_carrier_in), (st.pll, rs.pll),
+                        params=((pilot_freq, fs, 2.0, adj),
+                                (rds_freq, fs, 0.5, 0.0)),
+                        window=self.pll_window, out_dtype=odt))
         elif self.stereo and self.rds and (
                 self.compat_pll or self.pll_impl in ("scan", "pallas")):
             # both sequential loops in one launch, side by side on the card
             from sdr_tpu_torch.ops.cuda.pll_kernel import pll_loop_multi
             pallas = self.pll_impl == "pallas" and not self.compat_pll
-            (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
-                pll_loop_multi(
-                    (pilot, rds_carrier_in), (st.pll, rs.pll),
-                    params=((pilot_freq, fs, 2.0, adj, 0.01),
-                            (rds_freq, fs, 0.5, 0.0,
-                             self.rds_pll_bandwidth)),
-                    wrap_phase=pallas or self.pll_wrap_phase,
-                    lag_correction=not self.compat_pll,
-                    exact=not pallas))
+            with scope(f"pll_{self.pll_impl}"):
+                (c["nco_s"], c["nco_r"]), (c["pll_s"], c["pll_r"]) = (
+                    pll_loop_multi(
+                        (pilot, rds_carrier_in), (st.pll, rs.pll),
+                        params=((pilot_freq, fs, 2.0, adj, 0.01),
+                                (rds_freq, fs, 0.5, 0.0,
+                                 self.rds_pll_bandwidth)),
+                        wrap_phase=pallas or self.pll_wrap_phase,
+                        lag_correction=not self.compat_pll,
+                        exact=not pallas))
         else:
             if self.stereo:
                 c["nco_s"], c["pll_s"] = self._pll(
@@ -543,8 +630,12 @@ class Receiver:
                     nco_scale=0.5, norm_bandwidth=self.rds_pll_bandwidth)
         return channel, rds_channel, c
 
-    def _pll(self, x, st, *, norm_bandwidth, **kw):
+    def _pll(self, x, st, **kw):
         """One carrier through the selected engine: (nco, new_state)."""
+        with scope(f"pll_{self.pll_impl}"):
+            return self._pll_inner(x, st, **kw)
+
+    def _pll_inner(self, x, st, *, norm_bandwidth, **kw):
         if self.compat_pll:
             return pll(x, st, wrap_phase=False, lag_correction=False,
                        norm_bandwidth=norm_bandwidth, **kw)

@@ -21,6 +21,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from sdr_tpu_torch.io.logger import named_scope as scope
 from sdr_tpu_torch.io.stream import decode_u8_iq
 from sdr_tpu_torch.models.receiver import Receiver
 from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
@@ -58,14 +59,17 @@ class WidebandReceiver:
         on the device.  Returns (new_state, outputs) with outputs batched
         over stations."""
         cstate, rstate = state
-        if self.chan.engine in ("mfb", "pallas"):
-            (i_st, q_st), cstate = self.chan.call_interleaved(wide, cstate)
-        else:
-            if wide.dtype == torch.uint8:
-                i_w, q_w = decode_u8_iq(wide)
+        with scope("channelize"):
+            if self.chan.engine in ("mfb", "pallas"):
+                (i_st, q_st), cstate = self.chan.call_interleaved(wide,
+                                                                  cstate)
             else:
-                i_w, q_w = wide[0::2], wide[1::2]
-            (i_st, q_st), cstate = self.chan(i_w, q_w, cstate)
+                with scope("wideband_ingest"):
+                    if wide.dtype == torch.uint8:
+                        i_w, q_w = decode_u8_iq(wide)
+                    else:
+                        i_w, q_w = wide[0::2], wide[1::2]
+                (i_st, q_st), cstate = self.chan(i_w, q_w, cstate)
         rstate, out = self.rx.step_iq(rstate, i_st, q_st)
         return (cstate, rstate), out
 

@@ -1,18 +1,22 @@
 """The port's copies of sdr_tpu's host-only modules (config, firdes, tx,
-wav, compare and the RDS host decoder) equal their originals, and
-importing the port pulls in neither jax nor sdr_tpu (the GPU machine has
-no jax)."""
+wav, compare, the RDS host decoder, io/gen, the logger's NumPy functions
+and the native stream runtime) equal their originals, the native ring
+works, and importing the port pulls in neither jax nor sdr_tpu (the GPU
+machine has no jax)."""
 
 import dataclasses
 import os
 import subprocess
 import sys
 import wave
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from sdr_tpu import config as jcfg
+from sdr_tpu.io import gen as jgen
+from sdr_tpu.io import logger as jlogger
 from sdr_tpu import tx as jtx
 from sdr_tpu.io import wav as jwav
 from sdr_tpu.ops import firdes as jfirdes
@@ -20,6 +24,9 @@ from sdr_tpu.rds import streaming as jstreaming
 from sdr_tpu.rds import tx as jrds_tx
 from sdr_tpu.utils import compare as jcompare
 from sdr_tpu_torch import config as tcfg
+from sdr_tpu_torch import native
+from sdr_tpu_torch.io import gen as tgen
+from sdr_tpu_torch.io import logger as tlogger
 from sdr_tpu_torch import tx as ttx
 from sdr_tpu_torch.io import wav as twav
 from sdr_tpu_torch.ops import firdes as tfirdes
@@ -166,9 +173,15 @@ def test_port_imports_no_jax():
         "import sdr_tpu_torch.tx, sdr_tpu_torch.utils.compare\n"
         "import sdr_tpu_torch.ops.cuda.channelizer_kernel\n"
         "import sdr_tpu_torch.ops.spectrum\n"
+        "import sdr_tpu_torch.utils.checkpoint, sdr_tpu_torch.io.logger\n"
+        "import sdr_tpu_torch.io.gen, sdr_tpu_torch.ops.fourier\n"
+        "import sdr_tpu_torch.ops.fft_conv, sdr_tpu_torch.ops.iir\n"
+        "import sdr_tpu_torch.native\n"
         "from sdr_tpu_torch.models.receiver import Receiver\n"
         "from sdr_tpu_torch.models.wideband import WidebandReceiver\n"
         "from sdr_tpu_torch.ops.channelizer import WidebandChannelizer\n"
+        "Receiver(0, stereo=True, filter_engine='fft', deemphasis_us=75,\n"
+        "         compat_shared_audio_state=True, device='cpu')\n"
         "Receiver(0, stereo=True, rds=True, fused_frontend='int8',\n"
         "         pll_impl='ff', conv_dtype='bf16', conv_engine='tiled',\n"
         "         fused_ifbank='bf16', device='cpu').init_state((2,))\n"
@@ -183,3 +196,108 @@ def test_port_imports_no_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_gen_copy_equal():
+    with open(jgen.__file__, "rb") as a, open(tgen.__file__, "rb") as b:
+        assert a.read() == b.read()
+    for fn, args in (("generate_sin", (48000.0, 1000.0, 480, 0.5, 0.3)),
+                     ("generate_random_samples", (100, 5.0, 3, 7))):
+        np.testing.assert_array_equal(getattr(tgen, fn)(*args),
+                                      getattr(jgen, fn)(*args))
+    sig = [jgen.generate_sin(48000.0, f, 64) for f in (100.0, 300.0)]
+    np.testing.assert_array_equal(tgen.add_sin(sig), jgen.add_sin(sig))
+
+
+def test_logger_copies_equal(tmp_path):
+    """gen_index_vector, log_vector, PsdAnimWriter and the print helpers
+    write and return what the reference's do."""
+    x = np.linspace(0.0, 1.0, 7)
+    y = np.sin(x * 5).astype(np.float32)
+    np.testing.assert_array_equal(tlogger.gen_index_vector(9),
+                                  jlogger.gen_index_vector(9))
+    for mod, tag in ((jlogger, "j"), (tlogger, "t")):
+        mod.log_vector(str(tmp_path / f"{tag}_v"), x, y)
+        w = mod.PsdAnimWriter(str(tmp_path / f"{tag}_a"), x)
+        w.append(y, label="block 0")
+        w.append(2 * y)
+        w.close()
+        assert w.frames == 2
+    for name in ("v", "a"):
+        assert ((tmp_path / f"t_{name}.dat").read_text()
+                == (tmp_path / f"j_{name}.dat").read_text())
+    z = y + 1j * y[::-1]
+    for fn, arg in (("print_real_vector", y), ("print_complex_vector", z)):
+        assert getattr(tlogger, fn)(arg, 4) == getattr(jlogger, fn)(arg, 4)
+
+
+def test_stage_scope_records_wall_time():
+    tlogger.reset_stage_times()
+    with tlogger.stage_scope("demod"):
+        sum(range(1000))
+    assert set(tlogger.stage_times()) == {"demod"}
+    assert tlogger.stage_times()["demod"] >= 0.0
+    tlogger.reset_stage_times()
+
+
+def test_stream_runtime_copy_equal():
+    src = os.path.join(ROOT, "sdr_tpu", "native", "stream_runtime.cpp")
+    with open(src, "rb") as a, open(native.SOURCE, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_native_builds_outside_the_package():
+    """The library lands under build/native/ at the root of the checkout
+    (listed in .gitignore), never in the package directory."""
+    assert native.available(), "the tests' host has g++: the build must work"
+    lib = native.library_path()
+    assert lib.exists()
+    assert lib.parent.parent == native.BUILD_ROOT
+    assert native.BUILD_ROOT == Path(ROOT) / "build" / "native"
+    pkg = os.path.dirname(native.__file__)
+    assert not [f for f in os.listdir(pkg) if f.endswith(".so")]
+
+
+# the reference's native ring tests (tests/test_io.py), on the port's copy
+def test_native_ring_roundtrip():
+    r, w = os.pipe()
+    payload = np.arange(256, dtype=np.uint8).tobytes() * 8
+    os.write(w, payload)
+    os.close(w)
+    reader = native.BlockReader(r, 512, capacity=2)
+    blocks = list(reader)
+    reader.close()
+    os.close(r)
+    assert b"".join(b.tobytes() for b in blocks) == payload
+    assert reader.tail().size == 0
+
+
+def test_native_reader_keeps_partial_tail():
+    """The partial final block at EOF is kept for the consumer's aligned
+    flush (tail()), not dropped."""
+    r, w = os.pipe()
+    payload = bytes(range(256)) * 3  # 768 bytes = 1 full 512-block + 256
+    os.write(w, payload)
+    os.close(w)
+    reader = native.BlockReader(r, 512, capacity=2)
+    blocks = list(reader)
+    tail = reader.tail()
+    assert reader.blocks_read == 1
+    reader.close()
+    os.close(r)
+    assert len(blocks) == 1 and blocks[0].tobytes() == payload[:512]
+    assert tail.tobytes() == payload[512:]
+
+
+def test_native_writer_drains_on_close(tmp_path):
+    """BlockWriter (the CLI's audio sink) flushes every queued block before
+    close returns, in order."""
+    dst = tmp_path / "audio.bin"
+    payload = [bytes([i]) * 1024 for i in range(32)]
+    with open(dst, "wb") as f:
+        w = native.BlockWriter(f.fileno(), capacity=4)
+        for p in payload:
+            w.push(p)
+        w.push(np.frombuffer(b"end", np.uint8))
+        w.close()  # joins after draining
+    assert dst.read_bytes() == b"".join(payload) + b"end"

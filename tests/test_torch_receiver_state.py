@@ -108,13 +108,6 @@ def test_state_numpy_round_trip(profile):
     assert np.all(np.isfinite(np.asarray(out["mono"])))
 
 
-@pytest.mark.parametrize("kw", [dict(filter_engine="fft"),
-                                dict(deemphasis_us=75.0)])
-def test_not_yet_ported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Receiver(0, **kw, device="cpu")
-
-
 @pytest.mark.parametrize("kw", [dict(stereo=True), dict(rds=True)],
                          ids=["stereo", "rds"])
 def test_carrier_loop_defaults_match_reference_geometry(kw):

@@ -131,15 +131,6 @@ def test_state_numpy_round_trip(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(stereo=True, pll_impl="ff", compat_shared_audio_state=True),
-    dict(stereo=True, pll_impl="ff", deemphasis_us=75.0),
-    dict(stereo=True, pll_impl="ff", filter_engine="fft")])
-def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Receiver(0, **kw, device="cpu")
-
-
-@pytest.mark.parametrize("kw", [
     dict(stereo=True), dict(rds=True),
     dict(stereo=True, pll_impl="chunked"),
     dict(stereo=True, rds=True, pll_impl="ff", compat_pll=True)],
