@@ -45,7 +45,19 @@ must launch and those it must not:
     (the receiver's ranges and the kernels in its trace, and the cost of
     a range) and the native ring named by --stats;
   - options (phase 3j): de-emphasis, the shared audio state and the fft
-    engine, one station in the default profile, held to the CPU.
+    engine, one station in the default profile, held to the CPU;
+  - the parallel layer (phases 5a-5f, sdr_tpu_torch/parallel/, meshes of
+    8 shards on the one card): channel DP of phase 4's mono --fast input
+    on make_mesh() and 8 shards, bit-equal to the serial run (5a); time
+    sharding of one station: 30 s mono in the int8 --fast and f32
+    engines (5b), 10 s stereo in the default profile, B8 on 8 rows (5c),
+    10 s stereo + RDS --fast decoded by decode_rds_soft (5d); the
+    station-sharded wideband run, 64 stations in 8 shards (5e); two
+    processes over gloo, each its 64 stations (5f); each against its
+    serial run, timed beside it;
+  - RDS helpers (phase 5g): recover_symbols, syndromes_sliding_device
+    and decode_rds_soft on phase 4b's rds_soft, held to the CPU and the
+    live decoder.
 Every phase raises on failure, so a failure exits non-zero and prints no
 result.  The last line of stdout is {"ok": true, "device": {...}}; the
 line before it lists every kernel with its launches on the path that runs
@@ -1334,7 +1346,8 @@ def run_real_size(blocks, device, steps: int = 5,
 def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
                          profile: dict | None = None, steps: int = 5,
                          stations_checked: int = 4,
-                         profile_n: int = 10) -> tuple:
+                         profile_n: int = 10, keep: list | None = None
+                         ) -> tuple:
     """A stereo + RDS profile (bench.py's by default) at C stations x
     15.36 MB per step, input resident on the device: two steps whose
     left, right and rds_soft are checked, then ms/step and IQ MS/s from
@@ -1343,7 +1356,8 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     the plain versions run; a float32 last bit can flip a bf16 rounding,
     and a loop carries it through its feedback); a profile whose loops are
     too slow on the CPU at this length (the scan loops, one Python step
-    per sample) gates every station's separation instead."""
+    per sample) gates every station's separation instead.  `keep`, where
+    given, receives the checked steps' rds_soft (phase 5g reads it)."""
     import numpy as np
     import torch
     from sdr_tpu_torch.models.receiver import Receiver
@@ -1365,6 +1379,8 @@ def run_real_size_stereo(blocks, device, name: str = "stereo+RDS",
     launched = LAUNCHES["pll"]
     for b, blk in enumerate(blocks):
         st, out = rx.step(st, blk)
+        if keep is not None:
+            keep.append(out["rds_soft"])
         for key, n in (("left", n_if // rx.cfg.audio_decim),
                        ("right", n_if // rx.cfg.audio_decim),
                        ("rds_soft", None)):
@@ -2071,6 +2087,450 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
     return state
 
 
+# ------------------------------------------------------------------ phase 5
+# the parallel layer (sdr_tpu_torch/parallel/): meshes of 8 shards on the
+# one card, the counterpart of the reference's 8 virtual devices
+# (tests/conftest.py); the shards on one device run as one batch
+SHARDS = 8
+
+
+def virtual_mesh(axis: str):
+    import torch
+    from sdr_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(SHARDS, axis, devices=[torch.device("cuda")] * SHARDS)
+
+
+def timed(fn):
+    """(fn(), its host wall ms), synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def state_leaves(state) -> list:
+    from sdr_tpu_torch.parallel.mesh import tree_map
+    leaves: list = []
+    tree_map(leaves.append, state)
+    return leaves
+
+
+def launched_ms(fn, key: str, symbol: str, tries: int = 3
+                ) -> tuple[float | None, int]:
+    """(device ms of the `symbol` kernel in one fn() call, its launches in
+    that call) from torch.profiler.  The profiler's window opens with a
+    warm-up call (traced, left out), as in profile_steps: a trace drops
+    the first kernels of its window now and then (PERF.md §7).  A trace
+    whose kernel events still do not match the call's launches is taken
+    again; after `tries` such traces the time is None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    launched = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            before = LAUNCHES[key]
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        launched = LAUNCHES[key] - before
+        total, events = 0.0, 0
+        for e in prof.key_averages():
+            if symbol in e.key and e.key not in RANGES:
+                t = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if t is None else t
+                events += e.count
+        if events == launched:
+            return total / 1e3, launched
+        log(f"profile of {symbol}: {events} events for {launched} "
+            "launches: profiling again")
+    log(f"profile of {symbol}: the traces lost events {tries} times: not "
+        "measured")
+    return None, launched
+
+
+def run_channel_dp(device) -> dict:
+    """Phase 5a: phase 4's mono --fast input (128 stations, two steps of
+    5.12 MB) through `sharded_run` on make_mesh() (the card's devices) and
+    on a virtual 8-shard mesh, against the serial Receiver.run on the
+    same (128, 2 x 5.12 MB) u8: outputs within 1e-5 of max|ref| (bit-equal
+    expected: the shards of one device run as one batch) and the final
+    state leaf for leaf.  Times each whole run (two steps)."""
+    import torch
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.parallel.channels import sharded_run
+    from sdr_tpu_torch.parallel.mesh import make_mesh
+    rx = Receiver(MODE, device=device, **REAL_PROFILES["fast_int8"])
+    bs = rx.block_size_u8(BLOCKS_PER_STEP)
+    iq = station_blocks(capture(2 * bs / 2 / 2.4e6 + 0.01), STATIONS, bs, 2,
+                        device).transpose(0, 1).reshape(STATIONS, 2 * bs)
+    serial, s_final = rx.run(iq, blocks_per_step=BLOCKS_PER_STEP)
+    _, serial_ms = timed(lambda: rx.run(iq, blocks_per_step=BLOCKS_PER_STEP))
+    res = {"serial": serial_ms / 2}
+    for name, mesh in (("make_mesh()", make_mesh()),
+                       ("virtual 8", virtual_mesh("channels"))):
+        def run():
+            return sharded_run(rx, iq, mesh, blocks_per_step=BLOCKS_PER_STEP)
+        outs, final = run()
+        _, ms = timed(run)
+        exact = True
+        for key, want in serial.items():
+            got = outs[key]
+            if got.shape != want.shape:
+                raise AssertionError(f"channel DP {name} {key}: "
+                                     f"{tuple(got.shape)}")
+            err = (got.double() - want.double()).abs().max().item()
+            if err > 1e-5 * want.abs().max().item():
+                raise AssertionError(f"channel DP {name} {key}: max|err| "
+                                     f"{err}")
+            exact = exact and err == 0.0
+        for a, b in zip(state_leaves(final), state_leaves(s_final)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"channel DP {name}: final state "
+                                     "differs from the serial run's")
+        res[name] = ms / 2
+        log(f"channel DP on {name} ({len(mesh.devices)} shards): "
+            f"{STATIONS} stations x 2 steps of {bs} B "
+            f"{'bit-equal to' if exact else 'within 1e-5 of max of'} the "
+            f"serial run, final state equal; {ms / 2:.3f} ms/step against "
+            f"serial {serial_ms / 2:.3f} (host wall, whole runs)")
+    return res
+
+
+def tiled_capture(one, copies: int, device):
+    """`copies` back-to-back copies of a capture on the device: a capture
+    whose every tone and subcarrier runs a whole number of periods is
+    seamless when repeated, and synthesizing the whole length would cost
+    a minute of host time."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.tile(one, copies)).to(device)
+
+
+def run_timeshard_mono(device, shapes: dict) -> dict:
+    """Phase 5b: one mode-0 station's 30 s tone capture (144 MB of u8)
+    through `timesharded_mono` on a virtual 8-shard mesh, in the int8
+    --fast engines (B1) and the default float32 ones, against the serial
+    Receiver.run at atol 2e-5 (tests/test_parallel.py:77), the tone's SNR
+    above 20 dB (phase 3's bar).  Times both runs whole, and B1 on its 8
+    rows."""
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.parallel.timeshard import timesharded_mono
+    from sdr_tpu_torch.utils.compare import tone_snr_db
+    cap = tiled_capture(capture(1.0), 30, device)
+    mesh = virtual_mesh("time")
+    res = {}
+    for name, kw in (("int8 --fast", REAL_PROFILES["fast_int8"]),
+                     ("f32 default", {})):
+        rx = Receiver(MODE, device=device, **kw)
+
+        def serial():
+            return rx.run(cap, blocks_per_step=BLOCKS_PER_STEP)[0]["mono"]
+
+        def sharded():
+            return timesharded_mono(rx, cap, mesh)
+        want, got = serial(), sharded()
+        m = min(len(want), len(got))
+        if m < len(want) - 4096 or got.dim() != 1:
+            raise AssertionError(f"time-sharded mono {name}: "
+                                 f"{tuple(got.shape)} vs {tuple(want.shape)}")
+        err = (got[:m].double() - want[:m].double()).abs().max().item()
+        if err > 2e-5:
+            raise AssertionError(f"time-sharded mono {name}: max|err| {err}")
+        rate = rx.cfg.audio_fs
+        snr = tone_snr_db(got[rate // 4:rate * 3].double().cpu().numpy(),
+                          rate, 1000.0)
+        if not snr > 20.0:
+            raise AssertionError(f"time-sharded mono {name}: tone SNR "
+                                 f"{snr:.1f} dB")
+        _, serial_ms = timed(serial)
+        _, sharded_ms = timed(sharded)
+        res[name] = (serial_ms, sharded_ms)
+        log(f"time-sharded mono {name}: {len(cap)} B on {SHARDS} shards, "
+            f"max|err| {err:.3g} against the serial run over {m} samples, "
+            f"tone SNR {snr:.1f} dB; serial {serial_ms:.3f} ms, sharded "
+            f"{sharded_ms:.3f} ms (host wall, whole runs)")
+        if rx.fused_frontend:
+            ms_p, n_p = launched_ms(sharded, "frontend_demod", "frontend_")
+            ms_s, n_s = launched_ms(serial, "frontend_demod", "frontend_")
+            shapes.setdefault("frontend_demod", {})[
+                "timeshard mono, 8 rows"] = {
+                "rows": SHARDS, "bytes_a_row": len(cap) // SHARDS,
+                "ms_a_call": ms_p, "launches_a_call": n_p,
+                "serial_ms_a_call": ms_s, "serial_launches_a_call": n_s}
+            log(f"time-sharded mono {name}: B1 {ms_p} ms in {n_p} "
+                f"launches on {SHARDS} rows (the halos', the chunks'); "
+                f"serial {ms_s} ms in {n_s} launches on one row "
+                "(profiler device time)")
+    return res
+
+
+def run_timeshard_stereo(device, shapes: dict) -> dict:
+    """Phase 5c: one station's 10 s stereo capture (1 and 2.5 kHz) in the
+    default profile (the scan loop, B8) through `timesharded_stereo` on a
+    virtual 8-shard mesh: B8 steps 8 rows where the serial run steps one.
+    Stream SNR above 30 dB after 0.2 s and separation within 2 dB of the
+    serial run's (tests/test_parallel.py:106-119)."""
+    from sdr_tpu_torch import tx
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.parallel.timeshard import (stereo_warmup_if,
+                                                  timesharded_stereo)
+    from sdr_tpu_torch.utils.compare import (stereo_separation_db,
+                                             stream_snr_db)
+    cfg = MODES[0]
+    n = int(cfg.rf_fs)
+    one = tx.synthesize_capture(cfg, seconds=1.0,
+                                left=tx.tone(cfg.rf_fs, 1000.0, n),
+                                right=tx.tone(cfg.rf_fs, 2500.0, n))
+    cap = tiled_capture(one, 10, device)
+    mesh = virtual_mesh("time")
+    rx = Receiver(0, stereo=True, device=device)
+
+    def serial():
+        out = rx.run(cap, blocks_per_step=BLOCKS_PER_STEP)[0]
+        return out["left"], out["right"]
+
+    def sharded():
+        return timesharded_stereo(rx, cap, mesh)
+    (l_s, r_s), (l_p, r_p) = serial(), sharded()
+    if l_p.shape != l_s.shape or r_p.shape != r_s.shape:
+        raise AssertionError(f"time-sharded stereo: {tuple(l_p.shape)} vs "
+                             f"{tuple(l_s.shape)}")
+    l_s, r_s, l_p, r_p = (x.double().cpu().numpy()
+                          for x in (l_s, r_s, l_p, r_p))
+    skip = int(0.2 * cfg.audio_fs)
+    snr_l = stream_snr_db(l_p, l_s, skip=skip)
+    snr_r = stream_snr_db(r_p, r_s, skip=skip)
+    fs = float(cfg.audio_fs)
+    sep_p = stereo_separation_db(l_p, r_p, fs, 1000.0, skip=skip)
+    sep_s = stereo_separation_db(l_s, r_s, fs, 1000.0, skip=skip)
+    if not (snr_l > 30 and snr_r > 30 and sep_s > 20
+            and sep_p > sep_s - 2.0):
+        raise AssertionError(f"time-sharded stereo: SNR {snr_l:.1f} / "
+                             f"{snr_r:.1f} dB, separation {sep_p:.1f} "
+                             f"against serial {sep_s:.1f} dB")
+    _, serial_ms = timed(serial)
+    _, sharded_ms = timed(sharded)
+    ms_p, n_p = launched_ms(sharded, "pll", "pll_loop_kernel")
+    ms_s, n_s = launched_ms(serial, "pll", "pll_loop_kernel")
+    shapes.setdefault("pll", {})["timeshard stereo, 8 rows"] = {
+        "rows": SHARDS, "if_samples_a_row": len(cap) // SHARDS // (
+            2 * cfg.rf_decim) + stereo_warmup_if(rx),
+        "ms_a_call": ms_p, "launches_a_call": n_p,
+        "serial_ms_a_call": ms_s, "serial_launches_a_call": n_s}
+    log(f"time-sharded stereo: {len(cap)} B on {SHARDS} shards, stream SNR "
+        f"L {snr_l:.1f} R {snr_r:.1f} dB, separation {sep_p:.1f} dB "
+        f"(serial {sep_s:.1f}); serial {serial_ms:.3f} ms, sharded "
+        f"{sharded_ms:.3f} ms (host wall, whole runs); B8 {ms_p} ms in "
+        f"{n_p} launches on {SHARDS} rows (the halos', the chunks'), serial "
+        f"{ms_s} ms in {n_s} launches on one row (profiler device time)")
+    return {"default": (serial_ms, sharded_ms), "b8": (ms_s, ms_p)}
+
+
+def run_timeshard_full(device) -> dict:
+    """Phase 5d: one station's ~10 s stereo + RDS capture in the --fast
+    profile (B1, B3, B4, B5) through `timesharded_full` on a virtual
+    8-shard mesh, the soft stream decoded by the port's decode_rds_soft on
+    the card: PI and PS equal to the serial run's, at least the serial
+    run's groups less one, separation above 15 dB
+    (tests/test_parallel.py:164-177).  The capture is 6 copies of 1.664 s:
+    19 RDS groups, a whole number of periods of every tone, subcarrier
+    and symbol."""
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.parallel.timeshard import timesharded_full
+    from sdr_tpu_torch.rds import decode_rds_soft
+    from sdr_tpu_torch.utils.compare import stereo_separation_db
+    cfg = MODES[0]
+    one = stereo_capture(3_993_600 / cfg.rf_fs)
+    cap = tiled_capture(one, 6, device)
+    mesh = virtual_mesh("time")
+    rx = Receiver(0, device=device, **STEREO_PROFILE)
+
+    def serial():
+        return rx.run(cap, blocks_per_step=BLOCKS_PER_STEP)[0]
+
+    def sharded():
+        return timesharded_full(rx, cap, mesh)
+    out_s = serial()
+    l_p, r_p, soft_p = sharded()
+    skip = cfg.audio_fs // 4
+    sep = stereo_separation_db(l_p.double().cpu().numpy(),
+                               r_p.double().cpu().numpy(), cfg.audio_fs,
+                               1000.0, skip=skip)
+    info_p = decode_rds_soft(soft_p, cfg.rds_sps, device=device)
+    info_s = decode_rds_soft(out_s["rds_soft"], cfg.rds_sps, device=device)
+    if not (info_s.pi == 0x3D44 and info_p.pi == info_s.pi
+            and info_p.ps_name == info_s.ps_name
+            and info_p.groups_seen >= info_s.groups_seen - 1
+            and sep > 15.0):
+        raise AssertionError(f"time-sharded full: PI {info_p.pi} / "
+                             f"{info_s.pi}, PS {info_p.ps_name!r} / "
+                             f"{info_s.ps_name!r}, groups "
+                             f"{info_p.groups_seen} / {info_s.groups_seen}, "
+                             f"separation {sep:.1f} dB")
+    _, serial_ms = timed(serial)
+    _, sharded_ms = timed(sharded)
+    log(f"time-sharded full: {len(cap)} B on {SHARDS} shards, RDS PI="
+        f"{info_p.pi:#x} PS={info_p.ps_name!r} {info_p.groups_seen} groups "
+        f"(serial {info_s.groups_seen}), separation {sep:.1f} dB; serial "
+        f"{serial_ms:.3f} ms, sharded {sharded_ms:.3f} ms (host wall, whole "
+        "runs, the host's polarity stitch included)")
+    return {"--fast": (serial_ms, sharded_ms)}
+
+
+def run_station_sharded_wideband(wide_u8, device, shapes: dict) -> dict:
+    """Phase 5e: the wideband configuration (64 stations, 9.6 MS/s u8,
+    blocks_per_step 16, B7 bf16, the mono --fast receiver) through
+    `sharded_wideband_run` on a virtual 8-shard mesh (8 stations a shard,
+    each its own channelizer launching B7 on them), against the serial
+    WidebandReceiver.run: atol 2e-5 (tests/test_parallel.py:274), one
+    bf16 ulp more for a bf16 output.  Times both runs and B7 per step."""
+    import torch
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.models.wideband import WidebandReceiver
+    from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+    from sdr_tpu_torch.parallel.wideband import sharded_wideband_run
+    chan = WidebandChannelizer(FS_WIDE, 2.4e6, WIDE_FREQS, engine="pallas",
+                               ingest="u8", compute_dtype="bf16",
+                               device=device)
+    rx = Receiver(0, device=device, **WIDE_FAST)
+    wrx = WidebandReceiver(chan, rx)
+    nsteps = len(wide_u8) // wrx.block_wide(WIDE_BLOCKS_PER_STEP)
+    mesh = virtual_mesh("stations")
+
+    def serial():
+        return wrx.run(wide_u8, blocks_per_step=WIDE_BLOCKS_PER_STEP)[0]
+
+    def sharded():
+        return sharded_wideband_run(chan, rx, wide_u8, mesh,
+                                    blocks_per_step=WIDE_BLOCKS_PER_STEP)[0]
+    want, got = serial(), sharded()
+    err = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if g.shape != w.shape:
+            raise AssertionError(f"station-sharded wideband {key}: "
+                                 f"{tuple(g.shape)} vs {tuple(w.shape)}")
+        err = max(err, max_err(g, w, 2e-5 / max(w.abs().max().item(), 1e-30),
+                               g.dtype == torch.bfloat16,
+                               f"station-sharded wideband {key}"))
+    _, serial_ms = timed(serial)
+    _, sharded_ms = timed(sharded)
+    ms_p, n_p = launched_ms(sharded, "mfb", "mfb_")
+    ms_s, n_s = launched_ms(serial, "mfb", "mfb_")
+    shapes.setdefault("mfb", {})["station-sharded, 8 stations a launch"] = {
+        "stations": len(WIDE_FREQS) // SHARDS, "steps": nsteps,
+        "ms_a_call": ms_p, "launches_a_call": n_p,
+        "serial_ms_a_call": ms_s, "serial_launches_a_call": n_s}
+    log(f"station-sharded wideband: {len(WIDE_FREQS)} stations on {SHARDS} "
+        f"shards, {nsteps} steps, max|err| {err:.3g} against the serial "
+        f"run; serial {serial_ms / nsteps:.3f} ms/step, sharded "
+        f"{sharded_ms / nsteps:.3f} ms/step (host wall); B7 {ms_p} ms in "
+        f"{n_p} launches of {len(WIDE_FREQS) // SHARDS} stations, serial "
+        f"{ms_s} ms in {n_s} of {len(WIDE_FREQS)} ({nsteps} steps each; "
+        "profiler device time)")
+    return {"mono --fast": (serial_ms / nsteps, sharded_ms / nsteps)}
+
+
+def run_two_processes(device: str = "cuda", stations: int = STATIONS,
+                      seconds: float = 0.5, timeout: int = 300) -> None:
+    """Phase 5f: two processes rendezvous over gloo on 127.0.0.1
+    (parallel/distributed.py) and each runs its half of `stations` on
+    `device` (cuda: the card's first) through sharded_run, checked against
+    its own serial run
+    (tests/torch_multihost_worker.py, which imports only the port).  Fails
+    unless both print their MULTIHOST_OK line; kills both on the way
+    out."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    worker = str(ROOT / "tests" / "torch_multihost_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(i), "2", str(port), device,
+         str(stations), str(seconds)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    half = stations // 2
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        want = (f"MULTIHOST_OK proc={i}/2 global_devices=8 local_devices=4 "
+                f"channels={i * half}-{(i + 1) * half - 1} device={device}")
+        line = next((ln for ln in out.splitlines() if ln.startswith(want)),
+                    None)
+        if p.returncode != 0 or line is None:
+            raise AssertionError(f"worker {i} (rc {p.returncode}):\n"
+                                 f"{out[-4000:]}")
+        log(f"two processes: {line}")
+
+
+def run_rds_helpers(soft, device) -> None:
+    """Phase 5g: phase 4b's 128-station rds_soft (two steps) through the
+    RDS device helpers on the card: recover_symbols' phases and symbols
+    equal the CPU's, syndromes_sliding_device equals the host
+    syndromes_sliding on every station's bits, and decode_rds_soft on 4
+    stations gives the live decoder's PI and PS."""
+    import numpy as np
+    import torch
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.rds import (StreamingRdsDecoder, biphase_decode,
+                                   decode_rds_soft, differential_decode,
+                                   recover_symbols)
+    from sdr_tpu_torch.rds.matrix import (syndromes_sliding,
+                                          syndromes_sliding_device)
+    sps = MODES[0].rds_sps
+    sym_c, ph_c = recover_symbols(soft, sps)
+    sym_h, ph_h = recover_symbols(soft.cpu(), sps)
+    if not (torch.equal(ph_c.cpu(), ph_h) and torch.equal(sym_c.cpu(),
+                                                          sym_h)):
+        raise AssertionError("recover_symbols: the card's phases or symbols "
+                             "differ from the CPU's")
+    bits = [differential_decode(biphase_decode(s.float().numpy())[0])
+            for s in sym_h]
+    m = min(len(b) for b in bits)
+    bits = np.stack([b[:m] for b in bits])
+    syn, syn_ms = timed(lambda: syndromes_sliding_device(
+        torch.from_numpy(bits).to(device)))
+    syn = syn.cpu().numpy()
+    for i, row in enumerate(bits):
+        if not np.array_equal(syn[i], syndromes_sliding(row)):
+            raise AssertionError(f"syndromes_sliding_device: station {i} "
+                                 "differs from the host's")
+    infos = []
+    for i in range(4):
+        info = decode_rds_soft(soft[i], sps, device=device)
+        live = StreamingRdsDecoder(sps)
+        live.push(soft[i].float().cpu().numpy())
+        if not (info.pi == live.info.pi == 0x3D44
+                and info.ps_name == live.info.ps_name):
+            raise AssertionError(f"decode_rds_soft station {i}: PI "
+                                 f"{info.pi} PS {info.ps_name!r}, live "
+                                 f"{live.info.pi} {live.info.ps_name!r}")
+        infos.append(info.groups_seen)
+    log(f"RDS helpers: {tuple(soft.shape)} soft, phases and symbols equal "
+        f"the CPU's; syndromes of {bits.shape} bits equal the host's "
+        f"({syn_ms:.3f} ms on the card, host wall); decode_rds_soft = live "
+        f"PI 0x3d44 PS {info.ps_name!r} on 4 stations ({infos} groups)")
+
+
 def main() -> int:
     if not (ROOT / "sdr_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py runs from a checkout of the repo "
@@ -2176,9 +2636,28 @@ def main() -> int:
                         ("ifbank", "pll_chunked", "pll_chunked_multi")),
              "taps": (("frontend_demod", *fused_ff), ("ifbank", "pll")),
              "options": (("pll",), ("frontend_demod", *fused_ff, "ifbank",
-                                    "pll_chunked", "pll_chunked_multi"))}
+                                    "pll_chunked", "pll_chunked_multi")),
+             "channel DP": (("frontend_demod",), (
+                 "frontend", *fused_ff, "ifbank", "pll", "pll_chunked",
+                 "pll_chunked_multi", "mfb")),
+             "time-sharded mono": (("frontend_demod",), (
+                 "frontend", *fused_ff, "ifbank", "pll", "pll_chunked",
+                 "pll_chunked_multi", "mfb")),
+             "time-sharded stereo": (("pll",), (
+                 "frontend_demod", "frontend", *fused_ff, "ifbank",
+                 "pll_chunked", "pll_chunked_multi", "mfb")),
+             "time-sharded full": (("frontend_demod", *fused_ff), (
+                 "frontend", "ifbank", "pll", "pll_chunked",
+                 "pll_chunked_multi", "mfb")),
+             "station-sharded wideband": (("mfb",), (
+                 "frontend_demod", "frontend", *fused_ff, "ifbank", "pll",
+                 "pll_chunked", "pll_chunked_multi")),
+             "two processes": ((), tuple(KERNELS)),
+             "RDS helpers": ((), tuple(KERNELS))}
     new_paths = ("stations --fast", "stations default", "resume", "taps",
-                 "options")
+                 "options", "channel DP", "time-sharded mono",
+                 "time-sharded stereo", "time-sharded full",
+                 "station-sharded wideband")
     launches = {}
 
     def counted(path, fn):
@@ -2200,7 +2679,7 @@ def main() -> int:
         run_cli_stereo(device, 0)
         log("phase 3b: CLI 0 2 --rds --fast decodes the tones and the RDS "
             "groups")
-        out = run_real_size_stereo(sblocks, device)
+        out = run_real_size_stereo(sblocks, device, keep=rds_soft_4b)
         log("phase 4b: 128-station stereo + RDS steps agree with the CPU")
         return out
 
@@ -2312,6 +2791,13 @@ def main() -> int:
             f"finite ({time.perf_counter() - t0:.1f} s)")
         return out
 
+    def parallel_path(name, phase, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"phase {phase}: {name} ({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    rds_soft_4b: list = []
     rates = counted("mono", mono_path)
     del blocks
     rates["stereo_rds_int8"] = counted("stereo+RDS", stereo_path)
@@ -2355,7 +2841,37 @@ def main() -> int:
         rates["wideband_stereo_rds_default"] = counted(
             "wideband default",
             lambda: wideband_default_path(cli_paths, wide_u8))
+    # phase 5: the parallel layer and the RDS device helpers
+    shapes: dict = {}
+    par = {"channel DP": counted("channel DP", lambda: parallel_path(
+        "channel DP on make_mesh() and 8 virtual shards equals the serial "
+        "run", "5a", lambda: run_channel_dp(device)))}
+    par["time-sharded mono"] = counted(
+        "time-sharded mono", lambda: parallel_path(
+            "time-sharded mono equals the serial run", "5b",
+            lambda: run_timeshard_mono(device, shapes)))
+    par["time-sharded stereo"] = counted(
+        "time-sharded stereo", lambda: parallel_path(
+            "time-sharded stereo keeps the serial run's SNR and separation",
+            "5c", lambda: run_timeshard_stereo(device, shapes)))
+    par["time-sharded full"] = counted(
+        "time-sharded full", lambda: parallel_path(
+            "time-sharded stereo + RDS decodes the serial run's RDS", "5d",
+            lambda: run_timeshard_full(device)))
+    par["station-sharded wideband"] = counted(
+        "station-sharded wideband", lambda: parallel_path(
+            "station-sharded wideband equals the serial run", "5e",
+            lambda: run_station_sharded_wideband(wide_u8, device, shapes)))
     del wide_u8
+    counted("two processes", lambda: parallel_path(
+        "two processes over gloo each match their serial run", "5f",
+        lambda: run_two_processes(device)))
+    counted("RDS helpers", lambda: parallel_path(
+        "the RDS device helpers agree with the host", "5g",
+        lambda: run_rds_helpers(torch.cat(rds_soft_4b, dim=-1), device)))
+    del rds_soft_4b
+    log(f"parallel layer on {card} (serial vs sharded, host wall ms; "
+        "a step where named): " + json.dumps(par))
     for path, (ran, skipped) in paths.items():
         full = FULL_WIDTH.get(path, {})
         log(f"launches on the {path} path: " + ", ".join(
@@ -2411,6 +2927,9 @@ def main() -> int:
         if name == "frontend_demod":
             # B1 in the --stations --fast engine at that step's shape
             extra["stations_fast_step"] = stations_b1
+        if name in shapes:
+            # the kernel at the parallel paths' shapes (phase 5)
+            extra["sharded_shapes"] = shapes[name]
         extra["new_path_launches"] = {p: launches[p][name]
                                       for p in new_paths
                                       if launches[p][name]}

@@ -134,6 +134,9 @@ class Receiver:
                  deemphasis_us: float | None = None,
                  fused_synth: bool = True,
                  device: torch.device | str = "cuda"):
+        # the constructor's arguments but the device, for `on`
+        self._args = {k: v for k, v in locals().items()
+                      if k not in ("self", "device")}
         cfg = get_mode(mode) if isinstance(mode, int) else mode
         if rds and cfg.rds_sps is None:
             raise ValueError(f"mode {cfg.mode} does not support RDS")
@@ -304,6 +307,10 @@ class Receiver:
         # both carrier loops in one chunked launch (per-lane parameters)
         self._joint_pll = (stereo and rds and pll_impl == "pallas_chunked"
                            and not compat_pll)
+
+    def on(self, device: torch.device | str) -> "Receiver":
+        """A Receiver built with this one's arguments on `device`."""
+        return Receiver(device=device, **self._args)
 
     # ------------------------------------------------------------------ state
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> ReceiverState:
@@ -705,8 +712,23 @@ class Receiver:
         (per-step scalars such as rssi_db gain a trailing step axis).
         """
         iq_u8 = torch.as_tensor(iq_u8)
-        bs = self.block_size_u8(blocks_per_step)
         *lead, n = iq_u8.shape
+        if state is None:
+            state = self.init_state(tuple(lead))
+        chunks: dict[str, list[torch.Tensor]] = {}
+        for off, size in self.spans(n, blocks_per_step):
+            blk = iq_u8[..., off:off + size].to(self.device).contiguous()
+            state, out = self.step(state, blk)
+            for k, v in out.items():
+                chunks.setdefault(k, []).append(v)
+        return concat_steps(chunks, len(lead)), state
+
+    def spans(self, n: int, blocks_per_step: int = 1
+              ) -> list[tuple[int, int]]:
+        """`run`'s steps over n bytes as (offset, size): whole
+        block_size_u8(blocks_per_step) steps, then the remainder at the
+        finest aligned size."""
+        bs = self.block_size_u8(blocks_per_step)
         align = self.block_align_u8()
         if bs > n:
             bs = (n // align) * align
@@ -715,21 +737,16 @@ class Receiver:
                                  f"minimum block {align}")
         nblocks = n // bs
         tail_bs = ((n - nblocks * bs) // align) * align
-        if state is None:
-            state = self.init_state(tuple(lead))
         spans = [(b * bs, bs) for b in range(nblocks)]
         if tail_bs:
             spans.append((nblocks * bs, tail_bs))
-        chunks: dict[str, list[torch.Tensor]] = {}
-        for off, size in spans:
-            blk = iq_u8[..., off:off + size].to(self.device).contiguous()
-            state, out = self.step(state, blk)
-            for k, v in out.items():
-                chunks.setdefault(k, []).append(v)
-        outputs = {}
-        for k, vs in chunks.items():
-            if vs[0].ndim == len(lead):     # per-step scalar
-                outputs[k] = torch.stack(vs, dim=-1)
-            else:
-                outputs[k] = torch.cat(vs, dim=-1)
-        return outputs, state
+        return spans
+
+
+def concat_steps(chunks: dict[str, list[torch.Tensor]], n_lead: int
+                 ) -> dict[str, torch.Tensor]:
+    """Per-step outputs {key: [step outputs]} over `n_lead` batch axes ->
+    streams concatenated over time, per-step scalars (rssi_db) stacked on
+    a trailing step axis."""
+    return {k: torch.stack(vs, dim=-1) if vs[0].ndim == n_lead
+            else torch.cat(vs, dim=-1) for k, vs in chunks.items()}

@@ -81,6 +81,7 @@ class WidebandChannelizer:
         self.fs_out = float(fs_out)
         self.freqs = np.asarray(station_freqs, np.float64)
         self.k = len(station_freqs)
+        self.cutoff = float(cutoff)
         self.engine = engine
         self.taps = int(taps)
         self.device = torch.device(device)

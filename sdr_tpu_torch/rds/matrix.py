@@ -127,6 +127,31 @@ def syndromes_sliding(bits: np.ndarray) -> np.ndarray:
     return s @ weights
 
 
+def syndromes_sliding_device(bits):
+    """`syndromes_sliding` where the tensor lies, batched: bits (..., n)
+    uint8 -> (..., n-25) int32 packed syndromes.
+
+    The 26-bit windows are an unfold view of the stream, and the GF(2)
+    matmul runs as one float32 product against H with a mod-2 reduce.  It
+    is exact: the operands are 0 and 1, a sum is at most 26 and a packed
+    syndrome at most 1023 (the port keeps TF32 off, and 0/1 are exact in
+    TF32 besides).  CUDA has no int32 matmul, so the product is a float
+    one.
+    """
+    import torch
+    bits = torch.as_tensor(bits)
+    n = bits.shape[-1]
+    if n < 26:
+        return torch.zeros(bits.shape[:-1] + (0,), dtype=torch.int32,
+                           device=bits.device)
+    windows = bits.unfold(-1, 26, 1).to(torch.float32)  # (..., n-25, 26)
+    h = torch.as_tensor(H, dtype=torch.float32, device=bits.device)
+    s = torch.remainder(windows @ h, 2.0)               # (..., n-25, 10)
+    weights = torch.as_tensor(1 << np.arange(9, -1, -1),
+                              dtype=torch.float32, device=bits.device)
+    return (s @ weights).to(torch.int32)
+
+
 def decode_block(bits26: np.ndarray) -> tuple[int, str | None]:
     """Return (info16, offset_name) — offset_name None if syndrome unknown."""
     s = syndrome(bits26)

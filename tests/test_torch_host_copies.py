@@ -1,8 +1,10 @@
 """The port's copies of sdr_tpu's host-only modules (config, firdes, tx,
-wav, compare, the RDS host decoder, io/gen, the logger's NumPy functions
-and the native stream runtime) equal their originals, the native ring
-works, and importing the port pulls in neither jax nor sdr_tpu (the GPU
-machine has no jax)."""
+wav, compare, the RDS host decoder and rds/matrix.py beside its torch
+function, io/gen, the logger's NumPy functions, the native stream runtime
+and timeshard's polarity_stitch) equal their originals, the native ring
+works, and importing the port, the parallel layer and the RDS device
+helpers included, pulls in neither jax nor sdr_tpu (the GPU machine has
+no jax)."""
 
 import dataclasses
 import os
@@ -176,7 +178,16 @@ def test_port_imports_no_jax():
         "import sdr_tpu_torch.utils.checkpoint, sdr_tpu_torch.io.logger\n"
         "import sdr_tpu_torch.io.gen, sdr_tpu_torch.ops.fourier\n"
         "import sdr_tpu_torch.ops.fft_conv, sdr_tpu_torch.ops.iir\n"
-        "import sdr_tpu_torch.native\n"
+        "import sdr_tpu_torch.native, sdr_tpu_torch.rds.timing\n"
+        "import sdr_tpu_torch.parallel.mesh, sdr_tpu_torch.parallel.channels\n"
+        "import sdr_tpu_torch.parallel.distributed\n"
+        "import sdr_tpu_torch.parallel.timeshard\n"
+        "import sdr_tpu_torch.parallel.wideband\n"
+        "from sdr_tpu_torch.rds import decode_rds_soft, recover_symbols\n"
+        "from sdr_tpu_torch.rds.matrix import syndromes_sliding_device\n"
+        "from sdr_tpu_torch.rds.timing import manchester_pairing_score\n"
+        "from sdr_tpu_torch.parallel.mesh import make_mesh\n"
+        "make_mesh(2, devices=['cpu'] * 2)\n"
         "from sdr_tpu_torch.models.receiver import Receiver\n"
         "from sdr_tpu_torch.models.wideband import WidebandReceiver\n"
         "from sdr_tpu_torch.ops.channelizer import WidebandChannelizer\n"
@@ -196,6 +207,51 @@ def test_port_imports_no_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _without(path, name):
+    """The source at `path` without the top-level function `name`, the
+    package's name taken out of its imports."""
+    src = Path(path).read_text().replace("sdr_tpu_torch", "sdr_tpu")
+    start = src.index(f"\ndef {name}(")
+    return src[:start] + src[src.index("\ndef ", start + 1):]
+
+
+def test_rds_matrix_copy_equal():
+    """rds/matrix.py is the reference's but for syndromes_sliding_device,
+    which runs in torch here (tests/test_torch_rds_device.py)."""
+    from sdr_tpu.rds import matrix as jmatrix
+    from sdr_tpu_torch.rds import matrix as tmatrix
+    name = "syndromes_sliding_device"
+    assert (_without(tmatrix.__file__, name)
+            == _without(jmatrix.__file__, name))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_polarity_stitch_copy_equal(seed):
+    """The port's NumPy polarity_stitch gives the reference's output and
+    warnings on seeded soft segments: random per-device signs, noise, and
+    one seam whose overlap is silent."""
+    import warnings
+    from sdr_tpu.parallel.timeshard import polarity_stitch as jstitch
+    from sdr_tpu_torch.parallel.timeshard import polarity_stitch as tstitch
+    rng = np.random.default_rng(seed)
+    warm, chunk, n_dev = 96, 320, 6
+    wave = np.sin(2 * np.pi * np.arange(warm + chunk) / 16.0)
+    soft = (rng.choice([-1.0, 1.0], size=(n_dev, 1)) * wave
+            + 0.2 * rng.standard_normal((n_dev, warm + chunk)))
+    soft[1 + seed, warm // 2:warm] = 0.0
+    soft = soft.astype(np.float32)
+    results = []
+    for fn in (tstitch, jstitch):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn(soft, warm)
+        results.append((out, [str(w.message) for w in caught]))
+    (got, got_w), (want, want_w) = results
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert got_w == want_w and len(got_w) == 1
 
 
 def test_gen_copy_equal():
