@@ -13,8 +13,9 @@ card (phases 2, 2b, 2c and 2d: the front end, the feedforward stereo +
 RDS kernels, the IF bank's four-stream variant and the carrier loops with
 the chain floors of the sequential and the chunked loops and the
 sequential loop's joint launch against two single ones, then the
-wideband channelizer), drives the receivers through their entry points,
-and checks the audio and the RDS decode.
+wideband channelizer; phase 2e: the tiled engine's resampling FIR in
+every geometry it meets, both engines), drives the receivers through their
+entry points, and checks the audio and the RDS decode.
 Each path runs with the launch counts set to 0 and names the kernels it
 must launch and those it must not:
   - mono: the CLI with --fast and --exact-fast, 128-station steps;
@@ -70,7 +71,9 @@ entries name the lengths compared).
 Imports nothing of jax or sdr_tpu.  It also prints torch.profiler
 breakdowns of the 128-station and wideband steps (device time by kernel,
 busy time, host enqueue time per step), each trace's kernel events held
-against the launch counts.
+against the launch counts; a step of the tiled engine (--fast, ifbank
+joint) must run no convolution, and --stations --fast (the conv engine)
+some.
 """
 
 from __future__ import annotations
@@ -139,6 +142,10 @@ KERNELS = {   # LAUNCHES key -> (source, TPU kernel it replaces)
                           "sdr_tpu/ops/pallas/pll_kernel.py:199"),
     "mfb": ("sdr_tpu_torch/csrc/channelizer.cu",
             "sdr_tpu/ops/pallas/channelizer_kernel.py:57 _mfb_kernel"),
+    # an XLA-level stage of the reference (no pallas_call): its tiled
+    # banded GEMM, the --fast engine of the resampling FIRs
+    "banded": ("sdr_tpu_torch/csrc/banded.cu",
+               "sdr_tpu/ops/banded.py:102 _tiled_apply"),
 }
 # the path whose launch counts each kernel's entry reports
 KERNEL_PATH = {"frontend_demod": "mono", "frontend": "mono",
@@ -147,7 +154,8 @@ KERNEL_PATH = {"frontend_demod": "mono", "frontend": "mono",
                "ifbank": "stereo+RDS ifbank joint",
                "pll": "stereo+RDS default",
                "pll_chunked": "loop engines, one station",
-               "pll_chunked_multi": "stereo+RDS joint", "mfb": "wideband"}
+               "pll_chunked_multi": "stereo+RDS joint", "mfb": "wideband",
+               "banded": "stereo+RDS"}
 # path -> {kernel: launches in that path's full-width steps}: the 128-
 # station (64-station wideband) Receiver steps, apart from the CLI's and
 # the one-station runs; the kernels line's `full_width_launches`
@@ -1041,6 +1049,180 @@ def time_mfb(root: Path, reps: int = 20) -> None:
         log(f"time mfb/{ingest}/{compute}->{out}: kernel {ms:.4f} ms "
             f"(profiler), the wrapper's whole call {call_ms:.4f} ms (CUDA "
             f"events), mean of {reps}")
+
+
+# ----------------------------------------------------------------- phase 2e
+def banded_cases() -> dict:
+    """Every geometry the tiled engine meets -> (coeff, U, D, rows, n,
+    input dtype): the 128-station steps' shapes for mono audio (the bf16
+    fm stream of 5.12 MB of u8), the RDS resampler (the bf16 baseband of
+    15.36 MB) and the RRC (its float32 output); the unfused front end's I
+    stream of a 5.12 MB step (RF), mode 1's mono audio and the RDS band-
+    pass at 128 stations; modes 2 and 3 at the CLI's block (25 blocks, one
+    station: mode 2's audio as the stacked mono + stereo pair)."""
+    import torch
+    from sdr_tpu_torch.config import MODES
+    from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.ops import firdes
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def n_if(mode, profile, blocks):
+        rx = Receiver(mode, device="cpu", **profile)
+        return rx.block_size_u8(blocks) // (2 * rx.cfg.rf_decim)
+
+    def audio(m):
+        c = MODES[m]
+        return (firdes.lowpass(c.if_fs * c.audio_interp, c.audio_fc,
+                               c.audio_taps, c.audio_gain),
+                c.audio_interp, c.audio_decim)
+
+    def rds(m):
+        c = MODES[m]
+        u, d = c.rds_resample
+        return firdes.lowpass(c.if_fs * u, c.rds_fc, c.bp_taps * u, u), u, d
+
+    cfg = MODES[0]
+    mono = REAL_PROFILES["fast_int8"]
+    n_rds = n_if(0, STEREO_PROFILE, BLOCKS_PER_STEP)
+    return {
+        "audio0": (*audio(0), STATIONS, n_if(0, mono, BLOCKS_PER_STEP),
+                   bf16),
+        "rds0": (*rds(0), STATIONS, n_rds, bf16),
+        "rrc": (firdes.root_raised_cosine(cfg.rds_fs, 151,
+                                          cfg.rds_symbol_rate), 1, 1,
+                STATIONS, n_rds * 19 // 120, f32),
+        "rf": (firdes.lowpass(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps, 1), 1,
+               cfg.rf_decim, STATIONS,
+               10 * n_if(0, mono, BLOCKS_PER_STEP), f32),
+        "audio1": (*audio(1), STATIONS, n_if(1, mono, BLOCKS_PER_STEP),
+                   bf16),
+        "bpf": (firdes.bandpass(cfg.if_fs, cfg.rds_lo, cfg.rds_hi,
+                                cfg.bp_taps), 1, 1, STATIONS, n_rds, f32),
+        "audio2": (*audio(2), 2, n_if(2, STEREO_PROFILE, 25), bf16),
+        "rds2": (*rds(2), 1, n_if(2, STEREO_PROFILE, 25), bf16),
+        "audio3": (*audio(3), 1, n_if(3, mono, 25), bf16),
+    }
+
+
+def banded_work(fir, rows: int, n: int, in_bytes: int) -> tuple:
+    """Bytes and operations of one banded-FIR call: block and tail read
+    once, y (float32) and the new tail written once, the polyphase bank
+    read once; a multiply and an add for each non-zero tap of each output
+    (the bank's non-zero entries over U outputs), at the rate of the
+    engine's type (bf16 operands with float32 sums could run on the
+    tensor cores)."""
+    import numpy as np
+    import torch
+    from sdr_tpu_torch.ops.cuda.banded_kernel import polyphase_bank
+    s, n_out = fir.state_len, n // fir.down * fir.up
+    store = 2 if fir.store_dtype == torch.bfloat16 else 4
+    nbytes = (rows * (n + s) * in_bytes + rows * n_out * 4 + rows * s * store
+              + fir.M * fir.up * 4)
+    nnz = np.count_nonzero(polyphase_bank(fir._bank, fir.up, fir.down,
+                                          fir.M))
+    kind = "bf16" if fir.compute_dtype == torch.bfloat16 else "f32"
+    return nbytes, {kind: 2 * rows * (n // fir.down) * nnz}
+
+
+def check_banded(spills: dict, reps: int = 10) -> dict:
+    """Phase 2e: the tiled engine's kernel (csrc/banded.cu) against its
+    plain version (ops/banded.py tiled_reference, the reference's tile
+    schedule in torch) in every geometry of `banded_cases` and both
+    engines, over two carried blocks of seeded random input (the first
+    tail random, one element off an 8-byte boundary): y within 1e-5 of
+    max|plain|, the new tail bit for bit.  Times the kernel (its device
+    time, torch.profiler), the wrapper's whole call (CUDA events), the
+    plain version and two library yardsticks the port never calls: one
+    torch.mm of the tile windows and the band matrix in the compute dtype
+    with float32 output (the reference's own product; bf16 through
+    `out_dtype`, where the card's torch has it for CUDA), and the float32
+    cuDNN conv1d the conv engine runs (one call on the prepared
+    window).  Fails if ptxas reported a spill in a banded kernel.
+    Returns {"geometry/engine": {...}}."""
+    import torch
+    from sdr_tpu_torch.ops.banded import (TiledBandedFIR, tile_windows,
+                                          tiled_reference)
+    from sdr_tpu_torch.ops.resample import PolyphaseResampler
+    bad = [f"{fn}: {line}" for fn, line in spills.items() if "banded" in fn]
+    if bad:
+        raise AssertionError("ptxas spills in the banded kernels: "
+                             + "; ".join(bad))
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for case, (coeff, up, down, rows, n, in_dt) in banded_cases().items():
+        xs = [(0.5 * torch.randn(rows, n, generator=gen, device="cuda")
+               ).to(in_dt) for _ in range(2)]
+        for engine in (torch.float32, torch.bfloat16):
+            fir = TiledBandedFIR(coeff, up, down, compute_dtype=engine,
+                                 device="cuda")
+            s = fir.state_len
+            buf = torch.empty(rows * s + 1, dtype=in_dt, device="cuda")
+            tail = buf[1:].view(rows, s)
+            tail.copy_(0.5 * torch.randn(rows, s, generator=gen,
+                                         device="cuda"))
+            ptail, err = tail, 0.0
+            name = f"{case}/{'bf16' if engine == torch.bfloat16 else 'f32'}"
+            for b, x in enumerate(xs):
+                y, new = fir(x, tail)
+                want_y, want_t = tiled_reference(fir, x, ptail)
+                torch.cuda.synchronize()
+                err = max(err, max_err(y, want_y, 1e-5, False,
+                                       f"banded/{name} block {b}"))
+                if not (new.dtype == fir.store_dtype
+                        and torch.equal(new, want_t)):
+                    raise AssertionError(f"banded/{name} block {b}: the "
+                                         "new tail differs")
+                tail, ptail = new, want_t
+            t0 = ptail
+            ms = kernel_device_ms(lambda: fir(xs[0], t0), reps, "banded_")
+            if not ms > 0:
+                raise AssertionError(f"banded/{name}: the profiler recorded "
+                                     "no kernel event")
+            call_ms = cuda_ms(lambda: fir(xs[0], t0), reps)
+            plain_ms = cuda_ms(lambda: tiled_reference(fir, xs[0], t0), 3)
+            # the yardsticks, on operands prepared beforehand
+            win = tile_windows(fir, xs[0], t0)
+            win = win.reshape(-1, win.shape[-1]).to(engine)
+            a = fir.band_matrix.to("cuda", engine)
+            try:
+                torch.mm(win, a, out_dtype=torch.float32)
+                mm_ms = cuda_ms(lambda: torch.mm(win, a,
+                                                 out_dtype=torch.float32),
+                                reps)
+            except (RuntimeError, TypeError) as e:
+                log(f"  banded/{name}: no torch.mm out_dtype here "
+                    f"({str(e).splitlines()[0][:80]})")
+                mm_ms = None
+            del win, a
+            conv = PolyphaseResampler(coeff, up, down, compute_dtype=engine,
+                                      device="cuda")
+            span = (n // down - 1) * down + conv.L
+            start = s - (conv.M - 1)
+            cwin = torch.cat([t0, xs[0]], dim=-1)[:, start:start + span]
+            cwin = cwin.to(engine).float().reshape(rows, 1, span)
+            conv_ms = cuda_ms(lambda: torch.nn.functional.conv1d(
+                cwin, conv._weight, stride=down), reps)
+            del cwin, conv
+            in_bytes = 2 if in_dt == torch.bfloat16 else 4
+            bound_ms, bound_by = roofline(*banded_work(fir, rows, n,
+                                                       in_bytes))
+            results[name] = dict(
+                max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=mm_ms, conv_ms=conv_ms, bound_ms=bound_ms,
+                bound_by=bound_by, rows=rows, n=n,
+                input=str(in_dt).replace("torch.", ""),
+                geometry=f"{up}/{down}/{len(coeff)}")
+            log(f"kernel banded/{name}: U/D/taps {up}/{down}/{len(coeff)}, "
+                f"({rows}, {n}) {results[name]['input']} in, max|err| "
+                f"{err:.3g}, kernel {ms:.4f} ms (the wrapper's call "
+                f"{call_ms:.4f}), plain {plain_ms:.4f} ms, torch.mm "
+                + ("not run" if mm_ms is None else f"{mm_ms:.4f} ms")
+                + f", cuDNN conv1d {conv_ms:.4f} ms; bound {bound_ms:.4f} "
+                f"ms ({bound_by})")
+            del fir, buf, tail, ptail, t0, y, new, want_y, want_t
+        del xs
+        torch.cuda.empty_cache()
+    return results
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1996,7 +2178,7 @@ KERNEL_SYMBOLS = {"frontend_": ("frontend_demod", "frontend"),
                   "ffmix_kernel": ("ffmix",), "pair_": ("audio_pair",),
                   "pll_loop_kernel": ("pll",),
                   "pll_chunked_kernel": ("pll_chunked", "pll_chunked_multi"),
-                  "mfb_": ("mfb",)}
+                  "mfb_": ("mfb",), "banded_": ("banded",)}
 
 
 def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
@@ -2013,8 +2195,10 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
     lost events) it says so and profiles once more.  The steps taken here
     do not count in the path's launches: build.LAUNCHES is as it was on
     entry when this returns.  A measurement, not a gate: where the
-    profiler sees no device time it says so.  Returns the advanced
-    state."""
+    profiler sees no device time it says so.  One gate: a receiver of the
+    tiled engine (conv_engine='tiled') runs no convolution in its step
+    (aten::convolution calls), and `--stations --fast` (the conv engine,
+    the reference's choice) runs some.  Returns the advanced state."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from sdr_tpu_torch.ops.cuda.build import LAUNCHES
@@ -2056,13 +2240,15 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
             want = sum(LAUNCHES[k] - before[k] for k in keys)
             if seen != want:
                 lost.append(f"{sym} {seen} events for {want} launches")
-        return rows, wall, lost
+        convs = sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::convolution") / steps
+        return rows, wall, lost, convs
 
-    rows, wall, lost = profiled()
+    rows, wall, lost, convs = profiled()
     if lost:
         log(f"{tag} the trace lost events ({'; '.join(lost)}): profiling "
             "again")
-        rows, wall, lost = profiled()
+        rows, wall, lost, convs = profiled()
         if lost:
             log(f"{tag} the second trace lost events too "
                 f"({'; '.join(lost)}): its numbers are incomplete")
@@ -2076,6 +2262,15 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
            "launches"))
     for t, n, key in sorted(rows, reverse=True)[:25]:
         log(f"{tag} {t:9.4f} ms  x{n // steps:3d}  {key[:100]}")
+    tiled = getattr(rx, "rx", rx)._args["conv_engine"] == "tiled"
+    log(f"{tag} {convs:g} aten::convolution calls a step"
+        + (" (the tiled engine's receiver)" if tiled else ""))
+    if tiled and convs:
+        raise AssertionError(f"{tag} a tiled-engine step runs {convs:g} "
+                             "convolutions")
+    if label == "stations --fast" and not convs:
+        raise AssertionError(f"{tag} --stations --fast runs no convolution: "
+                             "it keeps the conv engine")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
@@ -2560,7 +2755,7 @@ def main() -> int:
     build.library()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.library_path()})")
-    regs, fn = [], "?"
+    regs, fn, spills = [], "?", {}
     for line in (build.library_path().parent / "build.log").read_text(
             ).splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -2572,6 +2767,7 @@ def main() -> int:
         if "spill" in line and not re.search(r"\b0 bytes spill stores, "
                                              r"0 bytes spill loads", line):
             log(f"  ptxas: {fn}: {line.strip()}")
+            spills[fn] = line.strip()
     log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
         "registers a thread, no spills unless listed above")
     tensor_core_sass(build.library_path())
@@ -2595,63 +2791,75 @@ def main() -> int:
     wkern = check_channelizer(device)
     log("phase 2d: the wideband channelizer agrees with its plain version "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    bkern = check_banded(spills)
+    log("phase 2e: the tiled engine's FIR agrees with its plain version in "
+        f"every geometry and engine ({time.perf_counter() - t0:.1f} s)")
 
     # each path runs with the counts at 0 and is read right after it; a
     # path lists the kernels it must launch and those it must not
     fused_ff = ("ifbank_mix", "ffmix", "audio_pair")
-    paths = {"mono": (("frontend_demod", "frontend"), ()),
+    # the tiled engine's FIR ("banded") runs wherever conv_engine='tiled'
+    # does (--fast, ifbank joint); the default, joint, wideband and
+    # --stations --fast profiles run the conv engine (the reference's
+    # choice: sdr_tpu/cli.py:316-318, 404-405)
+    paths = {"mono": (("frontend_demod", "frontend", "banded"), ()),
              "stereo+RDS": (("frontend_demod", "ifbank_mix", "ffmix",
-                             "audio_pair"), ("pll", "ifbank")),
-             "stereo+RDS mode 2": (("frontend_demod", "ifbank_mix", "ffmix"),
-                                   ("audio_pair",)),
+                             "audio_pair", "banded"), ("pll", "ifbank")),
+             "stereo+RDS mode 2": (("frontend_demod", "ifbank_mix", "ffmix",
+                                    "banded"), ("audio_pair",)),
              "stereo+RDS default": (("pll",), ("frontend_demod", *fused_ff,
                                                "ifbank", "pll_chunked",
-                                               "pll_chunked_multi")),
+                                               "pll_chunked_multi",
+                                               "banded")),
              "mode 2 default": (("pll",), ("frontend_demod", *fused_ff,
-                                           "ifbank")),
+                                           "ifbank", "banded")),
              "stereo+RDS joint": (("frontend_demod", "pll_chunked_multi"),
                                   ("pll", "pll_chunked", "ifbank",
-                                   *fused_ff)),
+                                   *fused_ff, "banded")),
              "stereo+RDS ifbank joint": (("frontend_demod", "ifbank",
-                                          "pll_chunked_multi"),
+                                          "pll_chunked_multi", "banded"),
                                          (*fused_ff, "pll")),
              "loop engines, one station": (("pll", "pll_chunked"),
                                            ("pll_chunked_multi",
-                                            *fused_ff)),
+                                            *fused_ff, "banded")),
              "wideband": (("mfb",), ("frontend_demod", "frontend",
                                      *fused_ff, "ifbank", "pll",
-                                     "pll_chunked", "pll_chunked_multi")),
+                                     "pll_chunked", "pll_chunked_multi",
+                                     "banded")),
              "wideband default": (("mfb", "pll"),
                                   ("frontend_demod", "frontend", *fused_ff,
                                    "ifbank", "pll_chunked",
-                                   "pll_chunked_multi")),
+                                   "pll_chunked_multi", "banded")),
              "stations --fast": (("frontend_demod",),
                                  ("frontend", *fused_ff, "ifbank", "pll",
                                   "pll_chunked", "pll_chunked_multi",
-                                  "mfb")),
+                                  "mfb", "banded")),
              "stations default": (("pll",), ("frontend_demod", *fused_ff,
                                              "ifbank", "pll_chunked",
-                                             "pll_chunked_multi")),
-             "resume": (("frontend_demod", *fused_ff, "pll"),
+                                             "pll_chunked_multi", "banded")),
+             "resume": (("frontend_demod", *fused_ff, "pll", "banded"),
                         ("ifbank", "pll_chunked", "pll_chunked_multi")),
-             "taps": (("frontend_demod", *fused_ff), ("ifbank", "pll")),
+             "taps": (("frontend_demod", *fused_ff, "banded"),
+                      ("ifbank", "pll")),
              "options": (("pll",), ("frontend_demod", *fused_ff, "ifbank",
-                                    "pll_chunked", "pll_chunked_multi")),
-             "channel DP": (("frontend_demod",), (
+                                    "pll_chunked", "pll_chunked_multi",
+                                    "banded")),
+             "channel DP": (("frontend_demod", "banded"), (
                  "frontend", *fused_ff, "ifbank", "pll", "pll_chunked",
                  "pll_chunked_multi", "mfb")),
-             "time-sharded mono": (("frontend_demod",), (
+             "time-sharded mono": (("frontend_demod", "banded"), (
                  "frontend", *fused_ff, "ifbank", "pll", "pll_chunked",
                  "pll_chunked_multi", "mfb")),
              "time-sharded stereo": (("pll",), (
                  "frontend_demod", "frontend", *fused_ff, "ifbank",
-                 "pll_chunked", "pll_chunked_multi", "mfb")),
-             "time-sharded full": (("frontend_demod", *fused_ff), (
+                 "pll_chunked", "pll_chunked_multi", "mfb", "banded")),
+             "time-sharded full": (("frontend_demod", *fused_ff, "banded"), (
                  "frontend", "ifbank", "pll", "pll_chunked",
                  "pll_chunked_multi", "mfb")),
              "station-sharded wideband": (("mfb",), (
                  "frontend_demod", "frontend", *fused_ff, "ifbank", "pll",
-                 "pll_chunked", "pll_chunked_multi")),
+                 "pll_chunked", "pll_chunked_multi", "banded")),
              "two processes": ((), tuple(KERNELS)),
              "RDS helpers": ((), tuple(KERNELS))}
     new_paths = ("stations --fast", "stations default", "resume", "taps",
@@ -2893,7 +3101,18 @@ def main() -> int:
     entries = []
     for name, (source, replaces) in KERNELS.items():
         extra, library_ms = {}, None
-        if name == "mfb":
+        if name == "banded":
+            # the stereo + RDS path's RDS resampler in the bf16 engine;
+            # every geometry and engine beside it
+            r = bkern["rds0/bf16"]
+            err, ms, plain_ms = r["max_abs_err"], r["ms"], r["plain_ms"]
+            # one torch.mm of the tile windows (or, where the card's torch
+            # has no bf16 mm with float32 output, the cuDNN conv)
+            library_ms = (r["conv_ms"] if r["library_ms"] is None
+                          else r["library_ms"])
+            bound_ms, bound_by = r["bound_ms"], r["bound_by"]
+            extra = {"geometries": bkern}
+        elif name == "mfb":
             # bench.py's channelizer check: u8 pre-phased, f32 compute/out;
             # every variant beside it (the bf16 engine's library time is
             # the bf16 cuBLAS GEMM)

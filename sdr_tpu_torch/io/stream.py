@@ -12,6 +12,7 @@ host readers hand out numpy blocks for the caller to move.
 
 from __future__ import annotations
 
+import sys
 from typing import BinaryIO, Iterator
 
 import numpy as np
@@ -83,3 +84,22 @@ class SyncBlockReader:
 
     def tail(self) -> np.ndarray:
         return self._tail
+
+
+def read_bin_f32(path: str) -> np.ndarray:
+    """Read a float32 binary dump (reference src/iofunc.cpp:32-47
+    `readBinData`)."""
+    return np.fromfile(path, dtype=np.float32)
+
+
+def write_bin_f32(path: str, data: np.ndarray) -> None:
+    """Write a float32 binary dump (reference src/iofunc.cpp:49-60
+    `writeBinData`)."""
+    np.asarray(data, dtype=np.float32).tofile(path)
+
+
+def write_s16_stream(data: np.ndarray, stream: BinaryIO | None = None) -> None:
+    """Write raw S16LE samples to a binary stream (default stdout), as the
+    reference's fwrite of short int (src/project.cpp:195)."""
+    out = stream if stream is not None else sys.stdout.buffer
+    out.write(np.asarray(data, dtype="<i2").tobytes())

@@ -23,13 +23,16 @@ torch.profiler traces (io/logger.py `named_scope`: rf_frontend, demod,
 mono_path, ifbank_fused, carrier_ffmix, pll_<impl>, audio_pair_kernel,
 ...), opened only while a profiler records.
 
-The reference's TPU-only choices map as follows: `conv_engine='tiled'`
-picks a TPU lowering of the same FIR, so both engines run one conv here
-(the tiled engine keeps its bf16 tail storage); `fe_out_tile`,
-`fe_sub_tiles` and the IF bank's tile tile the TPU kernels.  They are
-accepted so that the reference's configurations construct, and the tiles
-enter `block_align_u8`, so `run` consumes and emits exactly as many
-samples as the reference; `fe_sub_tiles` has no effect here.
+`conv_engine='tiled'` (the `--fast` engine) runs every direct-engine
+resampling FIR and the RDS resampler through ops/banded.py
+`TiledBandedFIR`, as the reference does: one CUDA launch a stage
+(csrc/banded.cu), input and tail stored at the compute dtype;
+`conv_engine='conv'` runs them as one cuDNN conv each.  The reference's
+TPU-only choices `fe_out_tile`, `fe_sub_tiles` and the IF bank's tile
+tile the TPU kernels.  They are accepted so that the reference's
+configurations construct, and the tiles enter `block_align_u8`, so
+`run` consumes and emits exactly as many samples as the reference;
+`fe_sub_tiles` has no effect here.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from sdr_tpu_torch.io.stream import decode_u8_iq
 from sdr_tpu_torch.models.state import (FrontEndState, MonoState, RdsState,
                                         ReceiverState, StereoState)
 from sdr_tpu_torch.ops import firdes
+from sdr_tpu_torch.ops.banded import TiledBandedFIR
 from sdr_tpu_torch.ops.demod import fm_arctan, fm_discriminator
 from sdr_tpu_torch.ops.fft_conv import OverlapSaveFIR
 from sdr_tpu_torch.ops.iir import deemphasis_alpha, first_order_iir
@@ -176,19 +180,22 @@ class Receiver:
                              deemphasis_alpha(cfg.audio_fs, deemphasis_us))
         self.device = torch.device(device)
         cdt = torch.bfloat16 if conv_dtype == "bf16" else torch.float32
-        # the tiled engine stores its input and tail at its compute dtype
-        store = cdt if conv_engine == "tiled" else None
         if_fs = cfg.if_fs
 
-        def poly(coeff, down=1, up=1):
+        def direct(coeff, down=1, up=1):
+            """The direct engine's resampler: the tiled engine's kernel or
+            one conv."""
+            if conv_engine == "tiled":
+                return TiledBandedFIR(coeff, up, down, compute_dtype=cdt,
+                                      device=self.device)
             return PolyphaseResampler(coeff, up, down, compute_dtype=cdt,
-                                      store_dtype=store, device=self.device)
+                                      device=self.device)
 
         def dec_filter(coeff, down=1, up=1):
             """Resampling FIR in the selected engine."""
             if filter_engine == "fft":
                 return OverlapSaveFIR(coeff, down, up, device=self.device)
-            return poly(coeff, down, up)
+            return direct(coeff, down, up)
 
         rf_coeff = firdes.lowpass(cfg.rf_fs, cfg.rf_fc, cfg.rf_taps, 1)
         audio_coeff = firdes.lowpass(if_fs * cfg.audio_interp, cfg.audio_fc,
@@ -296,7 +303,7 @@ class Receiver:
             self.rds_channel_filter = (None if self.if_bpf3 is not None
                                        else dec_filter(rds_chan))
             self.rds_carrier_filter = dec_filter(rds_carr)
-            self.rds_resampler = poly(rds_lpf, d, u)
+            self.rds_resampler = direct(rds_lpf, d, u)
             self.rds_rrc = dec_filter(rrc)
             # group-delay alignment of the channel path against the
             # square -> BPF(51 taps) -> carrier path (spec Fig 10 all-pass)
@@ -440,7 +447,7 @@ class Receiver:
         # the fft engine runs (reference receiver.py:570-572)
         defer_mono = (self.stereo and not self.compat_shared_audio_state
                       and isinstance(self.audio_resampler,
-                                     PolyphaseResampler))
+                                     (PolyphaseResampler, TiledBandedFIR)))
         mono_audio = audio_tail = None
         if not defer_mono:
             with scope("mono_path"):

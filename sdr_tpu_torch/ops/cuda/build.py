@@ -58,6 +58,8 @@ SIGNATURES = {
     "sdr_pll_chunked": (_I, [_I, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "sdr_mfb": (_I, [_P, _P, _I, _LL, _LL, _I, _LL, _P, _I, _I, _I, _I, _P,
                      _P, _I, _P, _P, _I, _I, _P, _P, _I, _P]),
+    "sdr_banded": (_I, [_P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P]),
 }
 
 # launches of each CUDA kernel in this process, one count per kernel: a
@@ -65,7 +67,7 @@ SIGNATURES = {
 # counts to 0 to start a count)
 LAUNCHES = {"frontend_demod": 0, "frontend": 0, "ifbank_mix": 0, "ffmix": 0,
             "audio_pair": 0, "ifbank": 0, "pll": 0, "pll_chunked": 0,
-            "pll_chunked_multi": 0, "mfb": 0}
+            "pll_chunked_multi": 0, "mfb": 0, "banded": 0}
 
 
 def _nvcc() -> str:

@@ -24,6 +24,7 @@ samples and per window of `window` samples:
   3. UNWRAP: wrapped first differences + cumsum give a continuous track;
   4. SYNTHESIZE: nco[i] = cos((ramp + r0 + phi_c + slope*rel) * scale
      + phase_adjust), piecewise linear in each window.
+`pll_reference` is the reference's scalar NumPy oracle of that loop.
 State mapping (as the reference): the loop engines carry (integrator,
 phase_acc, feedback_i, feedback_q, trig_offset), where phase_acc is the
 wrapped NCO argument (wrap_phase) or the reference's phaseEst and
@@ -244,6 +245,33 @@ def pll_feedforward_multi(xs, states, *, params, window: int = 256,
         ncos.append(nco)
         news.append(new)
     return tuple(ncos), tuple(news)
+
+
+def pll_reference(x, freq, fs, nco_scale, phase_adjust, norm_bandwidth, state):
+    """Scalar NumPy oracle with the reference's exact loop
+    (src/filter.cpp:136-174), a copy of the reference's: every loop engine
+    is pinned to it.
+
+    state: (integrator, phaseEst, feedbackI, feedbackQ, trigOffset)
+    Returns (ncoOut, new_state). float32 arithmetic like the C++.
+    """
+    f32 = np.float32
+    kp = f32(norm_bandwidth) * f32(PLL_CP)
+    ki = f32(norm_bandwidth) * f32(norm_bandwidth) * f32(PLL_CI)
+    integ, phase, fbi, fbq, trig = (f32(v) for v in state)
+    out = np.zeros(len(x), dtype=np.float32)
+    for i in range(len(x)):
+        error_i = f32(x[i]) * fbi
+        error_q = f32(x[i]) * (-fbq)
+        error_d = f32(np.arctan2(error_q, error_i))
+        integ = f32(integ + ki * error_d)
+        phase = f32(phase + kp * error_d + integ)
+        trig = f32(trig + 1)
+        trig_arg = f32(f32(2 * np.pi * (freq / fs)) * trig + phase)
+        fbi = f32(np.cos(trig_arg))
+        fbq = f32(np.sin(trig_arg))
+        out[i] = f32(np.cos(trig_arg * f32(nco_scale) + f32(phase_adjust)))
+    return out, (integ, phase, fbi, fbq, trig)
 
 
 def pll(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,

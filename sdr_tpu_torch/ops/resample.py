@@ -12,12 +12,11 @@ coefficient walk becomes a constant (L x U) matrix B and the resampler one
 strided `conv1d` with U output channels (derivation in
 `_build_filter_bank`).  The carried state is the last ceil((taps-1)/U)
 input samples, the only reachable part of the reference's taps-1 tail.
+This conv is the `conv_engine='conv'` engine; the tiled engine of the same
+terms (`--fast`) is ops/banded.py, with a kernel of its own.
 
-The reference also has a tiled banded-GEMM schedule of the same terms
-(sdr_tpu/ops/banded.py, `conv_engine='tiled'`), which only picks a TPU
-lowering.  Here both engines are this conv; `store_dtype` keeps the one
-observable difference, a tail stored at bf16 when the tiled engine computes
-in bf16.
+`fir_filter` and `resample_reference` (the scalar oracle of the unit
+tests) are copies of the reference's host functions.
 """
 
 from __future__ import annotations
@@ -60,13 +59,10 @@ class PolyphaseResampler:
     compute_dtype bf16 rounds signal and coefficients to bf16 and
     accumulates in float32 (the products of two bf16 values are exact in
     float32, so this is a float32 conv of bf16-rounded operands).
-    store_dtype, when given, is the dtype of the carried tail and of the
-    input as the filter sees it.
     """
 
     def __init__(self, coeff: np.ndarray, up: int = 1, down: int = 1, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 store_dtype: torch.dtype | None = None,
                  device: torch.device | str = "cuda"):
         if not (up == 1 or math.gcd(up, down) == 1):
             raise ValueError(f"U={up} and D={down} must be coprime")
@@ -79,7 +75,6 @@ class PolyphaseResampler:
         self.M = M
         self.state_len = s_eff
         self.compute_dtype = compute_dtype
-        self.store_dtype = store_dtype
         self.device = torch.device(device)
         # conv weight (out_channels=U, in_channels=1, width=L), already
         # rounded to the compute dtype
@@ -89,17 +84,13 @@ class PolyphaseResampler:
 
     def init_state(self, batch_shape: tuple[int, ...] = ()) -> torch.Tensor:
         return torch.zeros(batch_shape + (self.state_len,),
-                           dtype=self.store_dtype or torch.float32,
-                           device=self.device)
+                           dtype=torch.float32, device=self.device)
 
     def __call__(self, x: torch.Tensor, tail: torch.Tensor):
         """Apply to block x (..., N) with carried tail (..., state_len).
 
         Returns (y float32 (..., N*U/D), new_tail).
         """
-        if self.store_dtype is not None:
-            x = x.to(self.store_dtype)
-            tail = tail.to(self.store_dtype)
         *lead, n = x.shape
         if n % self.down or n < self.state_len:
             raise ValueError(f"block length {n} must be a multiple of "
@@ -114,6 +105,36 @@ class PolyphaseResampler:
             stride=self.down)                        # (batch, U, nsuper)
         y = out.transpose(1, 2).reshape(*lead, nsuper * self.up)
         return y, x[..., n - self.state_len:].clone()
+
+
+def fir_filter(coeff: np.ndarray, *,
+               device: torch.device | str = "cuda") -> PolyphaseResampler:
+    """Plain stateful FIR (U=1, D=1): the reference's `resample(..., 1, 1)`
+    for the band-pass stages (src/project.cpp:162,165,245,255)."""
+    return PolyphaseResampler(coeff, 1, 1, device=device)
+
+
+def resample_reference(x, state, coeff, up, down):
+    """Scalar NumPy oracle with the reference's exact loop structure
+    (src/filter.cpp:67-103), in float64: (out, new_state)."""
+    x = np.asarray(x, np.float64)
+    coeff = np.asarray(coeff, np.float64)
+    state = np.asarray(state, np.float64)
+    taps = len(coeff)
+    n_in = len(x)
+    out = np.zeros((n_in * up) // down, dtype=np.float64)
+    ssize = len(state)
+    for n in range(len(out)):
+        k = (n * down) % up
+        while k < taps:
+            j = (n * down - k) // up
+            if j >= 0:
+                out[n] += coeff[k] * x[j]
+            else:
+                out[n] += coeff[k] * state[ssize + j]
+            k += up
+    new_state = x[n_in - (taps - 1):] if taps > 1 else x[:0]
+    return out, new_state
 
 
 class MultiFIR:

@@ -1,10 +1,12 @@
 """The port's copies of sdr_tpu's host-only modules (config, firdes, tx,
 wav, compare, the RDS host decoder and rds/matrix.py beside its torch
 function, io/gen, the logger's NumPy functions, the native stream runtime
-and timeshard's polarity_stitch) equal their originals, the native ring
-works, and importing the port, the parallel layer and the RDS device
-helpers included, pulls in neither jax nor sdr_tpu (the GPU machine has
-no jax)."""
+and timeshard's polarity_stitch) and host functions (io/stream.py's
+read_bin_f32, write_bin_f32 and write_s16_stream; ops/resample.py's
+fir_filter and resample_reference; ops/pll.py's pll_reference) equal their
+originals, the native ring works, and importing the port, the parallel
+layer and the RDS device helpers included, pulls in neither jax nor
+sdr_tpu (the GPU machine has no jax)."""
 
 import dataclasses
 import os
@@ -168,6 +170,8 @@ def test_port_imports_no_jax():
         "import sdr_tpu_torch.ops.cuda.ifbank_kernel\n"
         "import sdr_tpu_torch.ops.cuda.ffmix_kernel\n"
         "import sdr_tpu_torch.ops.cuda.audio_kernel\n"
+        "import sdr_tpu_torch.ops.banded\n"
+        "import sdr_tpu_torch.ops.cuda.banded_kernel\n"
         "import sdr_tpu_torch.ops.cuda.build, sdr_tpu_torch.utils.convert\n"
         "import sdr_tpu_torch.ops.pll, sdr_tpu_torch.ops.pointwise\n"
         "import sdr_tpu_torch.rds, sdr_tpu_torch.rds.streaming\n"
@@ -252,6 +256,94 @@ def test_polarity_stitch_copy_equal(seed):
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
     assert got_w == want_w and len(got_w) == 1
+
+
+def test_stream_host_functions_copy_equal(tmp_path):
+    """read_bin_f32 / write_bin_f32 / write_s16_stream write the
+    reference's bytes and read them back alike."""
+    import io
+    from sdr_tpu.io import stream as jstream
+    from sdr_tpu_torch.io import stream as tstream
+    rng = np.random.default_rng(3)
+    data = rng.normal(0, 1, 1001)                       # float64 in
+    paths = [tmp_path / "t.bin", tmp_path / "j.bin"]
+    for mod, path in zip((tstream, jstream), paths):
+        mod.write_bin_f32(str(path), data)
+    assert paths[0].read_bytes() == paths[1].read_bytes()
+    got, want = (mod.read_bin_f32(str(paths[0]))
+                 for mod in (tstream, jstream))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    pcm = rng.integers(-32768, 32768, 777).astype(np.int32)
+    outs = []
+    for mod in (tstream, jstream):
+        buf = io.BytesIO()
+        mod.write_s16_stream(pcm, buf)
+        mod.write_s16_stream(pcm[:5].astype(np.int16), buf)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and len(outs[0]) == 2 * 782
+
+
+@pytest.mark.parametrize("up,down,taps", [(1, 1, 51), (1, 5, 51),
+                                          (3, 7, 40), (19, 120, 969)])
+def test_resample_reference_copy_equal(up, down, taps):
+    """The scalar oracle gives the reference's outputs and state, and the
+    port's conv engine agrees with it."""
+    import torch
+    from sdr_tpu.ops.resample import resample_reference as jref
+    from sdr_tpu_torch.ops.resample import (PolyphaseResampler,
+                                            resample_reference as tref)
+    rng = np.random.default_rng(up + down)
+    coeff = rng.normal(0, 0.1, taps)
+    n = down * max(4, -(-taps // down))
+    x = rng.normal(0, 0.5, n).astype(np.float32)
+    state = rng.normal(0, 0.5, taps - 1).astype(np.float32)
+    (got, got_st), (want, want_st) = (fn(x, state, coeff, up, down)
+                                      for fn in (tref, jref))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_st, want_st)
+    fir = PolyphaseResampler(coeff, up, down, device="cpu")
+    tail = torch.from_numpy(state[len(state) - fir.state_len:])
+    y, _ = fir(torch.from_numpy(x), tail)
+    np.testing.assert_allclose(y.double().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_fir_filter_copy_equal():
+    """fir_filter is the reference's plain FIR (U = D = 1): the same
+    state and the same outputs."""
+    import jax.numpy as jnp
+    import torch
+    from sdr_tpu.ops.resample import fir_filter as jfir
+    from sdr_tpu_torch.ops.resample import fir_filter as tfir
+    coeff = jfirdes.bandpass(240e3, 54e3, 60e3, 51)
+    port, ref = tfir(coeff, device="cpu"), jfir(coeff)
+    assert (port.up, port.down, port.state_len) == (1, 1, ref.state_len)
+    x = np.random.default_rng(4).normal(0, 0.5, (2, 300)).astype(np.float32)
+    jy, jt = ref(jnp.asarray(x), ref.init_state((2,)))
+    ty, tt = port(torch.from_numpy(x), port.init_state((2,)))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+@pytest.mark.parametrize("adjust,bw", [(0.0, 0.01), (0.3, 0.003)])
+def test_pll_reference_copy_equal(adjust, bw):
+    """The scalar loop oracle gives the reference's NCO and state bit for
+    bit on a seeded noisy 19 kHz pilot."""
+    from sdr_tpu.ops.pll import pll_reference as jref
+    from sdr_tpu_torch.ops.pll import pll_reference as tref
+    rng = np.random.default_rng(int(bw * 1e3))
+    t = np.arange(2000) / 240e3
+    x = (np.cos(2 * np.pi * 19e3 * t + 0.4)
+         + 0.1 * rng.standard_normal(t.size)).astype(np.float32)
+    state = (0.0, 0.1, 1.0, 0.0, 0.0)
+    (got, got_st), (want, want_st) = (
+        fn(x, 19e3, 240e3, 2.0, adjust, bw, state) for fn in (tref, jref))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert [np.float32(v) for v in got_st] == [np.float32(v)
+                                               for v in want_st]
 
 
 def test_gen_copy_equal():

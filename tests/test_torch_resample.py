@@ -1,6 +1,8 @@
-"""The port's PolyphaseResampler against sdr_tpu's PolyphaseResampler and
-TiledBandedFIR, in the RF and the four modes' audio geometries, over a
-two-block carry, on numpy-seeded inputs."""
+"""The port's PolyphaseResampler (the conv engine) against sdr_tpu's
+PolyphaseResampler and TiledBandedFIR, in the RF and the four modes' audio
+geometries, over a two-block carry, on numpy-seeded inputs.  The tiled
+engine's own tests, the bf16 profile among them, are in
+test_torch_banded.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,27 +53,6 @@ def test_resampler_f32_matches_both_engines(geom):
             np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=0,
                                        atol=1e-6)
             np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
-
-
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=IDS)
-def test_resampler_bf16_tiled_profile(geom):
-    """conv_engine='tiled' + conv_dtype='bf16': bf16 operands, f32 sums,
-    tail stored at bf16."""
-    _, coeff, up, down = geom
-    ref = JaxTiled(coeff, up, down, compute_dtype=jnp.bfloat16)
-    port = PolyphaseResampler(coeff, up, down, compute_dtype=torch.bfloat16,
-                              store_dtype=torch.bfloat16, device="cpu")
-    jt, tt = ref.init_state((2,)), port.init_state((2,))
-    assert tt.dtype == torch.bfloat16 and jt.dtype == jnp.bfloat16
-    for x in _blocks(down, seed=7 * up + down):
-        jy, jt = ref(jnp.asarray(x), jt)
-        ty, tt = port(torch.from_numpy(x), tt)
-        a, b = np.asarray(jy, np.float64), ty.double().numpy()
-        snr = 10 * np.log10(np.mean(a * a) / max(np.mean((a - b) ** 2),
-                                                 1e-30))
-        assert snr > 45.0, f"{snr:.1f} dB"
-        np.testing.assert_array_equal(tt.float().numpy(),
-                                      np.asarray(jt, np.float32))
 
 
 def test_resampler_rejects_bad_block():
