@@ -53,18 +53,29 @@ must launch and those it must not:
     sharding of one station: 30 s mono in the int8 --fast and f32
     engines (5b), 10 s stereo in the default profile, B8 on 8 rows (5c),
     10 s stereo + RDS --fast decoded by decode_rds_soft (5d); the
-    station-sharded wideband run, 64 stations in 8 shards (5e); two
+    station-sharded wideband run, 64 stations in 8 shards of one card,
+    bit-equal to the serial run with one B7 launch a step (5e); two
     processes over gloo, each its 64 stations (5f); each against its
     serial run, timed beside it;
   - RDS helpers (phase 5g): recover_symbols, syndromes_sliding_device
     and decode_rds_soft on phase 4b's rds_soft, held to the CPU and the
-    live decoder.
+    live decoder;
+  - envelope (phase 6a, tools/bench_envelope_torch.py): 16 impaired
+    0.9 s stereo + RDS captures (CFO, clock ppm, pilot phase noise, RF
+    noise, combinations) repeated to 128 stations, one Receiver.run per
+    mode (0, 2) and engine set (--fast, default): every copy of a row
+    bit-equal to the first, each row held to the CPU's run of it (45 dB,
+    the same PI, PS and RDS group count), mode 0's rows of
+    tests/test_impairments.py held to its gates; the table printed;
+  - demo (phase 6b): examples/demo_torch.py in-process, 8 stations of
+    1.2 s, DEMO PASSED and every station's PI.
 Every phase raises on failure, so a failure exits non-zero and prints no
 result.  The last line of stdout is {"ok": true, "device": {...}}; the
 line before it lists every kernel with its launches on the path that runs
 it (and, apart, in that path's full-width steps: 128 stations, 64 on the
-wideband paths; and its launches on the stations, resume, taps and
-options paths), its error against the plain version, both times, its
+wideband paths; and its launches on the paths of the later slices:
+stations, resume, taps, options, the parallel layer, the envelope and
+the demo), its error against the plain version, both times, its
 bound on the card from this run's shapes (`roofline`) and, where one
 PyTorch call computes the same function, that call's time (phase 2c's
 entries name the lengths compared).
@@ -2585,12 +2596,15 @@ def run_timeshard_full(device) -> dict:
 def run_station_sharded_wideband(wide_u8, device, shapes: dict) -> dict:
     """Phase 5e: the wideband configuration (64 stations, 9.6 MS/s u8,
     blocks_per_step 16, B7 bf16, the mono --fast receiver) through
-    `sharded_wideband_run` on a virtual 8-shard mesh (8 stations a shard,
-    each its own channelizer launching B7 on them), against the serial
-    WidebandReceiver.run: atol 2e-5 (tests/test_parallel.py:274), one
-    bf16 ulp more for a bf16 output.  Times both runs and B7 per step."""
+    `sharded_wideband_run` on a virtual 8-shard mesh of the one card,
+    whose shards run as one channelizer (the serial one) and one batched
+    receiver: bit-equal to the serial WidebandReceiver.run, outputs and
+    final state, with one B7 launch a step.  Times both runs (the median
+    of 5 of each, alternating) and logs the sharded-to-serial ratio, and
+    B7 per run."""
     import torch
     from sdr_tpu_torch.models.receiver import Receiver
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
     from sdr_tpu_torch.models.wideband import WidebandReceiver
     from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
     from sdr_tpu_torch.parallel.wideband import sharded_wideband_run
@@ -2603,36 +2617,49 @@ def run_station_sharded_wideband(wide_u8, device, shapes: dict) -> dict:
     mesh = virtual_mesh("stations")
 
     def serial():
-        return wrx.run(wide_u8, blocks_per_step=WIDE_BLOCKS_PER_STEP)[0]
+        return wrx.run(wide_u8, blocks_per_step=WIDE_BLOCKS_PER_STEP)
 
     def sharded():
         return sharded_wideband_run(chan, rx, wide_u8, mesh,
-                                    blocks_per_step=WIDE_BLOCKS_PER_STEP)[0]
-    want, got = serial(), sharded()
-    err = 0.0
+                                    blocks_per_step=WIDE_BLOCKS_PER_STEP)
+    (want, (_, want_st)) = serial()
+    before = LAUNCHES["mfb"]
+    got, got_st = sharded()
+    if LAUNCHES["mfb"] - before != nsteps:
+        raise AssertionError(f"station-sharded wideband: "
+                             f"{LAUNCHES['mfb'] - before} B7 launches in "
+                             f"{nsteps} steps, not one a step")
     for key, w in want.items():
         g = got[key]
-        if g.shape != w.shape:
-            raise AssertionError(f"station-sharded wideband {key}: "
-                                 f"{tuple(g.shape)} vs {tuple(w.shape)}")
-        err = max(err, max_err(g, w, 2e-5 / max(w.abs().max().item(), 1e-30),
-                               g.dtype == torch.bfloat16,
-                               f"station-sharded wideband {key}"))
-    _, serial_ms = timed(serial)
-    _, sharded_ms = timed(sharded)
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(
+                f"station-sharded wideband {key}: not bit-equal to the "
+                f"serial run ({tuple(g.shape)} vs {tuple(w.shape)}, max|err| "
+                f"{(g.float() - w.float()).abs().max().item():.3g})")
+    if not all(torch.equal(a, b) for a, b in zip(
+            state_leaves(got_st), state_leaves(want_st), strict=True)):
+        raise AssertionError("station-sharded wideband: the final state is "
+                             "not the serial run's")
+    serial_t, sharded_t = [], []
+    for _ in range(5):
+        serial_t.append(timed(serial)[1])
+        sharded_t.append(timed(sharded)[1])
+    serial_ms = sorted(serial_t)[2]
+    sharded_ms = sorted(sharded_t)[2]
     ms_p, n_p = launched_ms(sharded, "mfb", "mfb_")
     ms_s, n_s = launched_ms(serial, "mfb", "mfb_")
-    shapes.setdefault("mfb", {})["station-sharded, 8 stations a launch"] = {
-        "stations": len(WIDE_FREQS) // SHARDS, "steps": nsteps,
+    shapes.setdefault("mfb", {})["station-sharded, one launch a step"] = {
+        "stations": len(WIDE_FREQS), "steps": nsteps,
         "ms_a_call": ms_p, "launches_a_call": n_p,
         "serial_ms_a_call": ms_s, "serial_launches_a_call": n_s}
     log(f"station-sharded wideband: {len(WIDE_FREQS)} stations on {SHARDS} "
-        f"shards, {nsteps} steps, max|err| {err:.3g} against the serial "
-        f"run; serial {serial_ms / nsteps:.3f} ms/step, sharded "
-        f"{sharded_ms / nsteps:.3f} ms/step (host wall); B7 {ms_p} ms in "
-        f"{n_p} launches of {len(WIDE_FREQS) // SHARDS} stations, serial "
-        f"{ms_s} ms in {n_s} of {len(WIDE_FREQS)} ({nsteps} steps each; "
-        "profiler device time)")
+        f"shards of one card, {nsteps} steps, bit-equal to the serial run "
+        f"(outputs and final state); serial {serial_ms / nsteps:.3f} "
+        f"ms/step, sharded {sharded_ms / nsteps:.3f} ms/step, ratio "
+        f"{sharded_ms / serial_ms:.3f} (host wall, median of 5 runs each); "
+        f"B7 {ms_p} ms in {n_p} launches of {len(WIDE_FREQS)} stations, "
+        f"serial {ms_s} ms in {n_s} ({nsteps} steps each; profiler device "
+        "time)")
     return {"mono --fast": (serial_ms / nsteps, sharded_ms / nsteps)}
 
 
@@ -2724,6 +2751,185 @@ def run_rds_helpers(soft, device) -> None:
         f"the CPU's; syndromes of {bits.shape} bits equal the host's "
         f"({syn_ms:.3f} ms on the card, host wall); decode_rds_soft = live "
         f"PI 0x3d44 PS {info.ps_name!r} on 4 stations ({infos} groups)")
+
+
+# ------------------------------------------------------------------ phase 6
+# the operating envelope (tools/bench_envelope_torch.py): the tool's 12
+# rows and tests/test_impairments.py's 4, 0.9 s each with that test's RDS
+# (PS "IMPAIR  ", 14 groups), repeated to the 128 stations; one
+# Receiver.run per mode and engine set
+ENVELOPE_SECONDS = 0.9
+ENVELOPE_MODES = (0, 2)
+DEMO_STATIONS = 8
+
+
+def envelope_module():
+    if str(ROOT / "tools") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tools"))
+    import bench_envelope_torch
+    return bench_envelope_torch
+
+
+def envelope_rows() -> list[tuple[str, dict]]:
+    env = envelope_module()
+    return list(env.ROWS) + [(f"test: {name}", kw)
+                             for name, kw in env.IMPAIRMENTS.items()]
+
+
+def start_envelope(pool) -> tuple[dict, dict]:
+    """Phase 6a's inputs, made in `pool` (spawned processes): the 16 rows'
+    captures of each mode, and the CPU runs of each mode and engine set,
+    submitted to run beside the card's: ({mode: (16, n) u8},
+    {(mode, set): future of (outputs, metrics a row)})."""
+    env = envelope_module()
+    kws = [kw for _, kw in envelope_rows()]
+    caps = {m: env.captures(m, kws, ENVELOPE_SECONDS, env.IMPAIR_PS,
+                            env.IMPAIR_GROUPS, pool)
+            for m in ENVELOPE_MODES}
+    cpu = {(m, name): pool.submit(env.cpu_metrics, m, caps[m], engines)
+           for m in ENVELOPE_MODES
+           for name, engines in env.ENGINE_SETS.items()}
+    return caps, cpu
+
+
+def run_envelope(caps, mode: int, set_name: str, device) -> tuple:
+    """One Receiver.run of the mode's 16 rows, each repeated to the 128
+    stations (copy c of row r is station 16c + r), in the engine set;
+    counted as full width.  Returns (outputs (128, n) on the host, wall
+    s)."""
+    import numpy as np
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    env = envelope_module()
+    batch = np.tile(caps, (STATIONS // len(caps), 1))
+    full = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    out = env.run(mode, batch, env.ENGINE_SETS[set_name], device)
+    wall = time.perf_counter() - t0
+    count_full_width(full)
+    return out, wall
+
+
+def check_envelope(mode: int, set_name: str, out: dict, cpu_run) -> list:
+    """Phase 6a's checks of one run: every copy of a row bit-equal to its
+    first copy (the batch's rows are independent at full width); each
+    distinct row within 45 dB of the CPU's run of it (the --fast chain's
+    gate, phase 4b's; the loops' gate for the default set) on left, right
+    and rds_soft, with the same decoded PI, PS and RDS group count; in
+    mode 0 tests/test_impairments.py's rows meet its gates.  Every
+    failing row is logged before the phase fails.  Returns the card's
+    metrics of the 16 rows."""
+    import numpy as np
+    env = envelope_module()
+    rows = envelope_rows()
+    k = len(rows)
+    what = f"envelope mode {mode} {set_name}"
+    bad = []
+    for key, v in out.items():
+        if not np.isfinite(v).all() or v.shape[0] != STATIONS:
+            bad.append(f"{key}: {v.shape}, finite {np.isfinite(v).all()}")
+        copies = v.reshape(STATIONS // k, k, -1)
+        for r in range(k):
+            diff = [c for c in range(1, len(copies))
+                    if not np.array_equal(copies[c, r], copies[0, r])]
+            if diff:
+                bad.append(f"{key} row {rows[r][0]!r}: copies {diff} differ "
+                           "from the first (max|err| "
+                           f"{np.abs(copies[diff, r] - copies[0, r]).max():.3g})")
+    cpu_out, cpu_mets = cpu_run.result()
+    mets = [env.metrics(out["left"][r], out["right"][r], out["rds_soft"][r],
+                        mode) for r in range(k)]
+    for r, (name, _) in enumerate(rows):
+        m, c = mets[r], cpu_mets[r]
+        for key in ("left", "right", "rds_soft"):
+            snr = snr_db(cpu_out[key][r], out[key][r])
+            if not snr >= 45.0:
+                bad.append(f"row {name!r} {key}: card vs CPU {snr:.1f} dB")
+        if (m["pi"], m["ps"], m["groups"]) != (c["pi"], c["ps"],
+                                               c["groups"]):
+            bad.append(f"row {name!r}: RDS {m['pi']} {m['ps']!r} "
+                       f"{m['groups']} groups, CPU {c['pi']} {c['ps']!r} "
+                       f"{c['groups']}")
+        if mode == 0 and name.startswith("test: ") and not (
+                m["separation_db"] > env.GATES["separation_db"]
+                and m["snr_db"] > env.GATES["snr_db"]
+                and m["pi"] == env.IMPAIR_PI and m["ps"] == env.IMPAIR_PS
+                and m["groups"] >= env.GATES["groups"]):
+            bad.append(f"row {name!r} misses tests/test_impairments.py's "
+                       f"gates: {m}")
+    for b in bad:
+        log(f"{what}: {b}")
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} checks failed (above)")
+    log(f"{what}: every copy of the {k} rows bit-equal to its first, each "
+        "row within 45 dB of the CPU's with its PI, PS and groups"
+        + (", the reference rows within tests/test_impairments.py's gates"
+           if mode == 0 else ""))
+    return mets
+
+
+def run_envelope_phase(device, counted) -> dict:
+    """Phase 6a: the captures and the CPU runs in 8 spawned processes,
+    the four card runs counted as paths, then each run's checks and the
+    table.  Returns {(mode, set): card wall s}."""
+    env = envelope_module()
+    t0 = time.perf_counter()
+    with env.spawn_pool(8) as pool:
+        caps, cpu_runs = start_envelope(pool)
+        log(f"phase 6a: {len(caps) * len(envelope_rows())} captures of "
+            f"{ENVELOPE_SECONDS} s synthesized in "
+            f"{time.perf_counter() - t0:.1f} s (8 processes)")
+        outs, walls = {}, {}
+        for mode in ENVELOPE_MODES:
+            for name in env.ENGINE_SETS:
+                outs[mode, name], walls[mode, name] = counted(
+                    f"envelope mode {mode} {name}",
+                    lambda m=mode, n=name: run_envelope(caps[m], m, n,
+                                                        device))
+        t1 = time.perf_counter()
+        table = {key: check_envelope(*key, outs[key], cpu_runs[key])
+                 for key in outs}
+        log(f"phase 6a: checks in {time.perf_counter() - t1:.1f} s (the CPU "
+            "runs included where they were still running)")
+    log("envelope on the card, 0.9 s a row, 128 stations a run "
+        "(separation dB / L SNR dB / RDS groups):")
+    head = "  ".join(f"{f'mode {m} {n}':<18}" for m in ENVELOPE_MODES
+                     for n in env.ENGINE_SETS)
+    log(f"  {'impairment':<22} {head}")
+    for r, (name, _) in enumerate(envelope_rows()):
+        log(f"  {name:<22} " + "  ".join(
+            f"{env.cell(table[m, n][r]):<18}" for m in ENVELOPE_MODES
+            for n in env.ENGINE_SETS))
+    log("phase 6a: card runs " + ", ".join(
+        f"mode {m} {n} {w:.1f} s" for (m, n), w in walls.items())
+        + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    return walls
+
+
+def run_demo(device) -> float:
+    """Phase 6b: examples/demo_torch.py in-process with DEMO_STATIONS
+    stations of 1.2 s: exit code 0, DEMO PASSED, and each station's PI
+    the one it was sent (0x1000 + s).  Returns its decode wall s (the
+    line it prints)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "demo_torch", ROOT / "examples" / "demo_torch.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = demo.main(["--stations", str(DEMO_STATIONS), "--seconds", "1.2",
+                        "--device", str(device)])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            log(f"  demo: {line}")
+    pis = [(int(s), int(pi, 16)) for s, pi in re.findall(
+        r"station (\d+): .* RDS PI=(0x[0-9a-f]+)", text)]
+    if rc != 0 or "DEMO PASSED" not in text or pis != [
+            (s, 0x1000 + s) for s in range(DEMO_STATIONS)]:
+        raise AssertionError(f"demo: exit {rc}, PIs {pis}")
+    m = re.search(r"([\d.]+) s wall", text)
+    return float(m.group(1))
 
 
 def main() -> int:
@@ -2862,10 +3068,30 @@ def main() -> int:
                  "pll_chunked", "pll_chunked_multi", "banded")),
              "two processes": ((), tuple(KERNELS)),
              "RDS helpers": ((), tuple(KERNELS))}
+    # phase 6: the envelope's runs take the launch lists of the 128-station
+    # stereo + RDS paths of their engine set and mode; the demo runs the
+    # default set
+    loops_only = ("frontend_demod", "frontend", *fused_ff, "ifbank",
+                  "pll_chunked", "pll_chunked_multi", "mfb", "banded")
+    paths.update({
+        "envelope mode 0 --fast": (("frontend_demod", *fused_ff, "banded"),
+                                   ("frontend", "ifbank", "pll",
+                                    "pll_chunked", "pll_chunked_multi",
+                                    "mfb")),
+        "envelope mode 0 default": (("pll",), loops_only),
+        "envelope mode 2 --fast": (("frontend_demod", "ifbank_mix", "ffmix",
+                                    "banded"),
+                                   ("frontend", "audio_pair", "ifbank",
+                                    "pll", "pll_chunked",
+                                    "pll_chunked_multi", "mfb")),
+        "envelope mode 2 default": (("pll",), loops_only),
+        "demo": (("pll",), loops_only)})
     new_paths = ("stations --fast", "stations default", "resume", "taps",
                  "options", "channel DP", "time-sharded mono",
                  "time-sharded stereo", "time-sharded full",
-                 "station-sharded wideband")
+                 "station-sharded wideband", "envelope mode 0 --fast",
+                 "envelope mode 0 default", "envelope mode 2 --fast",
+                 "envelope mode 2 default", "demo")
     launches = {}
 
     def counted(path, fn):
@@ -3080,6 +3306,14 @@ def main() -> int:
     del rds_soft_4b
     log(f"parallel layer on {card} (serial vs sharded, host wall ms; "
         "a step where named): " + json.dumps(par))
+    # phase 6: the operating envelope and the demo
+    torch.cuda.empty_cache()
+    run_envelope_phase(device, counted)
+    demo_s = counted("demo", lambda: parallel_path(
+        f"examples/demo_torch.py decodes {DEMO_STATIONS} stations: DEMO "
+        "PASSED", "6b", lambda: run_demo(device)))
+    log(f"demo on {card}: {DEMO_STATIONS} stations x 1.2 s decoded in "
+        f"{demo_s:.2f} s wall (the demo's own line)")
     for path, (ran, skipped) in paths.items():
         full = FULL_WIDTH.get(path, {})
         log(f"launches on the {path} path: " + ", ".join(

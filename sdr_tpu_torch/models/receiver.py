@@ -649,14 +649,11 @@ class Receiver:
         with scope(f"pll_{self.pll_impl}"):
             return self._pll_inner(x, st, **kw)
 
-    def _pll_inner(self, x, st, *, norm_bandwidth, **kw):
+    def _pll_inner(self, x, st, **kw):
         if self.compat_pll:
-            return pll(x, st, wrap_phase=False, lag_correction=False,
-                       norm_bandwidth=norm_bandwidth, **kw)
+            return pll(x, st, wrap_phase=False, lag_correction=False, **kw)
         if self.pll_impl == "ff":
-            # the estimator has no loop filter: no bandwidth
             return pll_feedforward(x, st, window=self.pll_window, **kw)
-        kw["norm_bandwidth"] = norm_bandwidth
         if self.pll_impl in ("pallas", "pallas_chunked"):
             from sdr_tpu_torch.ops.cuda.pll_kernel import (
                 pll_pallas, pll_pallas_chunked)
@@ -709,7 +706,8 @@ class Receiver:
         return base * blocks_per_step
 
     def run(self, iq_u8: np.ndarray | torch.Tensor, *,
-            blocks_per_step: int = 1, state: ReceiverState | None = None):
+            blocks_per_step: int = 1, state: ReceiverState | None = None,
+            unroll: int = 1):
         """Run the receiver over a whole capture (..., n) of u8.
 
         The capture is consumed in block_size_u8(blocks_per_step) steps,
@@ -717,6 +715,8 @@ class Receiver:
         aligned size; only a sub-`block_align_u8` tail is dropped.
         Returns (outputs, final_state), outputs concatenated over time
         (per-step scalars such as rssi_db gain a trailing step axis).
+        `unroll` (the reference's scan unrolling) is accepted and has no
+        effect: the steps run eagerly.
         """
         iq_u8 = torch.as_tensor(iq_u8)
         *lead, n = iq_u8.shape

@@ -84,9 +84,11 @@ class PairDecimFIR:
     `__call__(xa, xb, tail_a, tail_b)` -> (ya, yb, new_tail_a,
     new_tail_b): ya, yb (..., n // down) in out_dtype; the tails are the
     last CTX raw input samples of each stream, in its dtype.
+    `tile` and `interpret` (TPU-lowering knobs) are accepted and have no
+    effect.
     """
 
-    def __init__(self, coeff: np.ndarray, down: int, *,
+    def __init__(self, coeff: np.ndarray, down: int, *, tile: int = 3840,
                  compute_dtype: torch.dtype = torch.float32,
                  out_dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
@@ -118,7 +120,8 @@ class PairDecimFIR:
         return torch.zeros(batch_shape + (CTX,), dtype=dtype,
                            device=self.device)
 
-    def __call__(self, xa, xb, tail_a, tail_b):
+    def __call__(self, xa, xb, tail_a, tail_b,
+                 interpret: bool | None = None):
         n = xa.shape[-1]
         if xb.shape != xa.shape or n % self.down or n < CTX:
             raise ValueError(f"streams must match in shape, with a length "

@@ -126,7 +126,8 @@ class PallasMFB:
             self._dev_cache[key] = ((t(rr), t(ri)), (t(br), t(bi)), t(adv))
         return self._dev_cache[key]
 
-    def __call__(self, body: torch.Tensor, state):
+    def __call__(self, body: torch.Tensor, state,
+                 interpret: bool | None = None):
         """Channelize one raw interleaved block (2N,) -> (K, N/D) I/Q.  The
         kernel reads the block through a strided (2D, N/D) view of it."""
         two_d = 2 * self.decim
@@ -136,9 +137,11 @@ class PallasMFB:
                              f"{two_d}, not {tuple(body.shape)}")
         return self.call_cols(body.reshape(n2 // two_d, two_d).T, state)
 
-    def call_cols(self, xbt: torch.Tensor, state):
+    def call_cols(self, xbt: torch.Tensor, state,
+                  interpret: bool | None = None):
         """Channelize from the pre-phased (2D, N/D) column layout,
-        xbt[d, c] = raw[2D*c + d]."""
+        xbt[d, c] = raw[2D*c + d].  `interpret` (a TPU-lowering knob) is
+        accepted here and in `__call__` and has no effect."""
         args = self._prepare(xbt, state)
         if xbt.is_cuda:
             i_out, q_out = self._kernel(xbt, state["tail"], *args)

@@ -46,7 +46,8 @@ def _scaled_ramp(n: int, freq: float, fs: float, nco_scale: float,
 def ffmix(channel, rds_channel, rds_tail, params_s, params_r, *, n: int,
           window: int, pilot_freq: float, rds_freq: float, fs: float,
           delay: int, stereo_scale: float = 2.0, rds_scale: float = 0.5,
-          phase_adjust: float = 0.0, out_dtype=torch.float32):
+          phase_adjust: float = 0.0, tile: int | None = None,
+          out_dtype=torch.float32, interpret: bool | None = None):
     """Synthesize both carriers, apply the RDS all-pass delay, and mix.
 
     channel / rds_channel: (..., n) IF-rate streams of one float dtype.
@@ -54,6 +55,8 @@ def ffmix(channel, rds_channel, rds_tail, params_s, params_r, *, n: int,
     params_s / params_r: (off, slope) pairs (..., n // window) for the
       pilot (nco_scale 2) and RDS carrier (nco_scale 0.5) engines.
     Returns (mixed_stereo, rds_baseband), both (..., n) in out_dtype.
+    `tile` and `interpret` (TPU-lowering knobs) are accepted and have no
+    effect.
     """
     args = _fold(channel, rds_channel, rds_tail, params_s, params_r, n,
                  window, pilot_freq, rds_freq, fs, delay, stereo_scale,

@@ -156,19 +156,21 @@ def _quantize_int8(a: np.ndarray) -> tuple[np.ndarray, float]:
 class FusedFrontend:
     """Stateful fused channelizer over (..., n) interleaved u8 IQ blocks.
 
-    `__call__(u8, tail)` -> (i_ds, q_ds, new_tail);
-    `demod_call(u8, tail, prev_i, prev_q)`
+    `__call__(u8_block, tail)` -> (i_ds, q_ds, new_tail);
+    `demod_call(u8_block, tail, prev_i, prev_q)`
         -> (fm_demod, new_tail, new_prev_i, new_prev_q, power_sum),
     the reference's return tuples.  The tail is the carried last 128 u8
     bytes of the stream (2*(taps-1) = 100 rounded up as the reference
     stores it, so states convert one to one).
 
     compute_dtype: 'f32' | 'bf16' | 'int8' | 'int8x2' (the reference's
-    coefficient engines); out_dtype: dtype of fm_demod.
+    coefficient engines); out_dtype: dtype of fm_demod.  `out_tile`,
+    `sub_tiles` and `interpret` (TPU-lowering knobs) are accepted and have
+    no effect.
     """
 
-    def __init__(self, coeff: np.ndarray, decim: int, *,
-                 compute_dtype: str = "f32",
+    def __init__(self, coeff: np.ndarray, decim: int, out_tile: int = 128,
+                 *, compute_dtype: str = "f32", sub_tiles: int = 1,
                  out_dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         if compute_dtype not in ENGINES:
@@ -225,20 +227,23 @@ class FusedFrontend:
                           dtype=torch.uint8, device=self.device)
 
     # ------------------------------------------------------------ dispatch
-    def __call__(self, u8: torch.Tensor, tail: torch.Tensor):
-        if u8.is_cuda:
-            return self._kernel(u8, tail)
-        _require_cpu(u8)
-        return frontend_reference(self, u8, tail)
+    def __call__(self, u8_block: torch.Tensor, tail: torch.Tensor,
+                 interpret: bool = False):
+        if u8_block.is_cuda:
+            return self._kernel(u8_block, tail)
+        _require_cpu(u8_block)
+        return frontend_reference(self, u8_block, tail)
 
-    def demod_call(self, u8: torch.Tensor, tail: torch.Tensor,
-                   prev_i: torch.Tensor, prev_q: torch.Tensor):
+    def demod_call(self, u8_block: torch.Tensor, tail: torch.Tensor,
+                   prev_i: torch.Tensor, prev_q: torch.Tensor,
+                   interpret: bool = False):
         """Front end + FM discriminator in one launch; power_sum is
         sum(I^2+Q^2) over the block's IF samples (for RSSI)."""
-        if u8.is_cuda:
-            return self._demod_kernel(u8, tail, prev_i, prev_q)
-        _require_cpu(u8)
-        return frontend_demod_reference(self, u8, tail, prev_i, prev_q)
+        if u8_block.is_cuda:
+            return self._demod_kernel(u8_block, tail, prev_i, prev_q)
+        _require_cpu(u8_block)
+        return frontend_demod_reference(self, u8_block, tail, prev_i,
+                                        prev_q)
 
     # -------------------------------------------------------------- kernels
     def _check(self, u8, tail, *floats):

@@ -122,11 +122,14 @@ class FusedIFBank:
     and the last CTX fm samples; n a multiple of OUT_TILE.
 
     compute_dtype float32 | bfloat16; out_dtype None (float32) | a dtype.
+    `out_tile`, `sub_tiles` and `interpret` (TPU-lowering knobs) are
+    accepted and have no effect.
     """
 
-    def __init__(self, chan_coeff, pilot_coeff, rds_coeff, carr_coeff, *,
+    def __init__(self, chan_coeff, pilot_coeff, rds_coeff, carr_coeff,
+                 out_tile: int = 512, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 out_dtype: torch.dtype | None = None,
+                 sub_tiles: int = 4, out_dtype: torch.dtype | None = None,
                  device: torch.device | str = "cuda"):
         coeffs = [np.asarray(c, np.float64) for c in
                   (chan_coeff, pilot_coeff, rds_coeff, carr_coeff)]
@@ -160,7 +163,8 @@ class FusedIFBank:
         return torch.zeros(batch_shape + (CTX,), dtype=self.out_dtype,
                            device=self.device)
 
-    def __call__(self, fm: torch.Tensor, tail: torch.Tensor):
+    def __call__(self, fm: torch.Tensor, tail: torch.Tensor,
+                 interpret: bool = False):
         n = fm.shape[-1]
         if n % OUT_TILE:
             raise ValueError(f"IF block {n} is not a multiple of the tile "
@@ -252,7 +256,8 @@ class FusedIFBankMix(FusedIFBank):
         return self._ramp_cache[key]
 
     # ------------------------------------------------------------ dispatch
-    def mix_call(self, fm: torch.Tensor, tail: torch.Tensor):
+    def mix_call(self, fm: torch.Tensor, tail: torch.Tensor,
+                 interpret: bool = False):
         n = fm.shape[-1]
         if n % self.window or n < CTX:
             raise ValueError(f"IF block {n} is not a multiple of the "

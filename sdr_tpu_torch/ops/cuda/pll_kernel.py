@@ -93,9 +93,12 @@ def pll_loop(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,
 
 def pll_pallas(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,
                nco_scale: float = 1.0, phase_adjust: float = 0.0,
-               norm_bandwidth: float = 0.01, lag_correction: bool = True):
+               norm_bandwidth: float = 0.01, lag_correction: bool = True,
+               chunk: int = 4096, interpret: bool = False):
     """The reference's `pll_pallas` (pll_impl='pallas'): the sequential
-    loop with the polynomial detector, always wrapping the phase."""
+    loop with the polynomial detector, always wrapping the phase.
+    `chunk` and `interpret` (TPU-lowering knobs) are accepted and have no
+    effect: a CUDA tensor always launches the kernel."""
     return pll_loop(x, state, freq=freq, fs=fs, nco_scale=nco_scale,
                     phase_adjust=phase_adjust, norm_bandwidth=norm_bandwidth,
                     wrap_phase=True, lag_correction=lag_correction,
@@ -279,10 +282,12 @@ def pll_pallas_chunked(x: torch.Tensor, state: PLLState, *, freq: float,
                        fs: float, nco_scale: float = 1.0,
                        phase_adjust: float = 0.0,
                        norm_bandwidth: float = 0.01,
-                       lag_correction: bool = True, chunk: int = 32):
+                       lag_correction: bool = True, chunk: int = 32,
+                       interpret: bool = False):
     """The reference's `pll_pallas_chunked` (pll_impl='pallas_chunked'):
     the chunked loop with the polynomial detector; chunk shrinks to the
-    largest divisor of n that is at most min(chunk, 4096)."""
+    largest divisor of n that is at most min(chunk, 4096).
+    `interpret` (a TPU-lowering knob) is accepted and has no effect."""
     chunk = _largest_divisor_at_most(x.shape[-1], min(chunk, 4096))
     (nco,), (new,) = pll_chunked_loop(
         (x,), (state,),
@@ -292,10 +297,12 @@ def pll_pallas_chunked(x: torch.Tensor, state: PLLState, *, freq: float,
 
 
 def pll_pallas_chunked_multi(xs, states, *, params,
-                             lag_correction: bool = True, chunk: int = 32):
+                             lag_correction: bool = True, chunk: int = 32,
+                             interpret: bool = False):
     """The reference's `pll_pallas_chunked_multi`: G instances (the stereo
     pilot loop and the RDS carrier loop) with their own parameters in one
-    launch; chunk clamped as in pll_pallas_chunked."""
+    launch; chunk clamped as in pll_pallas_chunked.
+    `interpret` (a TPU-lowering knob) is accepted and has no effect."""
     chunk = _largest_divisor_at_most(xs[0].shape[-1], min(chunk, 4096))
     return pll_chunked_loop(tuple(xs), tuple(states), params=tuple(params),
                             chunk=chunk, lag_correction=lag_correction)

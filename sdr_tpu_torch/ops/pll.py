@@ -185,12 +185,13 @@ def _ff_run(x, st: PLLState, tabs: dict, *, n: int, window: int,
 
 def pll_feedforward(x: torch.Tensor, state: PLLState, *, freq: float,
                     fs: float, nco_scale: float = 1.0,
-                    phase_adjust: float = 0.0, window: int = 256,
-                    out_dtype=torch.float32):
+                    phase_adjust: float = 0.0, norm_bandwidth: float = 0.01,
+                    window: int = 256, out_dtype=torch.float32):
     """Feedforward carrier recovery over block x (..., n): returns
     (nco (..., n), new_state).  The window shrinks to the largest divisor
-    of n that is at most `window`, as in the reference.  (The reference's
-    `norm_bandwidth` sets nothing here and is not taken.)"""
+    of n that is at most `window`, as in the reference.
+    `norm_bandwidth` is accepted for signature compatibility and sets
+    nothing, as in the reference: the estimator has no loop filter."""
     n = x.shape[-1]
     window = _largest_divisor_at_most(n, window)
     tabs = _ff_tables(n, window, freq, fs, nco_scale, phase_adjust,
@@ -277,13 +278,15 @@ def pll_reference(x, freq, fs, nco_scale, phase_adjust, norm_bandwidth, state):
 def pll(x: torch.Tensor, state: PLLState, *, freq: float, fs: float,
         nco_scale: float = 1.0, phase_adjust: float = 0.0,
         norm_bandwidth: float = 0.01, wrap_phase: bool = True,
-        lag_correction: bool = True):
+        lag_correction: bool = True, unroll: int = 8):
     """The scan engine over block x (..., n): returns (nco (..., n) float32,
     new_state).  wrap_phase=False is the reference's trigOffset counter
     (compat_pll); lag_correction emits cos((trigArg - w0) * scale + adj),
     the loop's phase estimate for sample i, instead of the reference's
     one-sample lead.  A CPU tensor runs the plain loop, a CUDA tensor the
-    sequential kernel, both with the exact atan2."""
+    sequential kernel, both with the exact atan2.
+    `unroll` (the reference's scan unrolling) is accepted and has no
+    effect."""
     if x.is_cuda:
         from sdr_tpu_torch.ops.cuda.pll_kernel import pll_loop
         return pll_loop(x, state, freq=freq, fs=fs, nco_scale=nco_scale,

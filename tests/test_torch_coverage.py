@@ -1,6 +1,8 @@
 """Every public top-level function and class of each sdr_tpu module has a
 same-named counterpart in the same-path module of sdr_tpu_torch
-(`ops/pallas/X` maps to `ops/cuda/X`), apart from the exemptions below,
+(`ops/pallas/X` maps to `ops/cuda/X`), and every public function and
+method of it (`__init__` and `__call__` too) takes each parameter its
+reference takes, under the same name, apart from the exemptions below,
 each with its reason.  Reads the sources with `ast` and imports neither
 package."""
 
@@ -22,6 +24,10 @@ EXEMPT = {
         "port is placed by a sharding",
 }
 
+# (module, function or Class.method, parameter) -> why the port does not
+# take it
+PARAM_EXEMPT: dict[tuple[str, str, str], str] = {}
+
 MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
 
 
@@ -38,6 +44,48 @@ def _public(path: Path) -> list[str]:
             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
                               ast.ClassDef))
             and not n.name.startswith("_")]
+
+
+def _callables(tree: ast.Module) -> dict[str, ast.FunctionDef]:
+    """Public top-level functions, and the public methods of public
+    classes with their `__init__` and `__call__`, as "Class.method"."""
+    fn_types = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for n in tree.body:
+        if isinstance(n, fn_types) and not n.name.startswith("_"):
+            out[n.name] = n
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            for m in n.body:
+                if isinstance(m, fn_types) and (
+                        not m.name.startswith("_")
+                        or m.name in ("__init__", "__call__")):
+                    out[f"{n.name}.{m.name}"] = m
+    return out
+
+
+def _missing_params(ref: ast.FunctionDef, port: ast.FunctionDef
+                    ) -> list[str]:
+    """The parameters of `ref` that a caller may pass by name and `port`
+    does not take.  A `*args` name is never passed by name; a port
+    `**kwargs` takes every name (it forwards them)."""
+    if port.args.kwarg is not None:
+        return []
+
+    def names(f):
+        a = f.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    have = set(names(port))
+    return [x for x in names(ref) if x not in have]
+
+
+def _param_gaps(rel: str) -> list[tuple[str, str]]:
+    port = _port_path(rel)
+    if not port.is_file():
+        return []
+    ref_fns = _callables(ast.parse((REF / rel).read_text()))
+    port_fns = _callables(ast.parse(port.read_text()))
+    return [(name, p) for name, fn in ref_fns.items() if name in port_fns
+            for p in _missing_params(fn, port_fns[name])]
 
 
 @pytest.mark.parametrize("rel", MODULES)
@@ -67,3 +115,39 @@ def test_maps_modules_by_path():
     assert _port_path("ops/pallas/audio_kernel.py") == (
         PORT / "ops" / "cuda" / "audio_kernel.py")
     assert not _port_path("ops/none.py").exists()
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_callables_take_reference_parameters(rel):
+    """A call that runs against sdr_tpu does not raise TypeError against
+    sdr_tpu_torch for a keyword the port lacks."""
+    missing = [(name, p) for name, p in _param_gaps(rel)
+               if (rel, name, p) not in PARAM_EXEMPT]
+    assert not missing, f"sdr_tpu_torch/{rel}: missing parameters {missing}"
+
+
+def test_param_exemptions_are_needed():
+    """Each parameter exemption names a reference parameter the port still
+    lacks, and gives a reason."""
+    for (rel, name, param), reason in PARAM_EXEMPT.items():
+        assert (name, param) in _param_gaps(rel), (rel, name, param)
+        assert reason
+
+
+def test_finds_a_missing_parameter():
+    """The parameter check finds a keyword the port lacks (as
+    pll_feedforward's norm_bandwidth was), by name and not by position,
+    and takes a port **kwargs as forwarding every name."""
+    ref = ast.parse("def f(x, *coeffs, a=1, b=2): pass\n"
+                    "class C:\n"
+                    "    def __call__(self, u8_block, interpret=False): pass")
+    port = ast.parse("def f(x, b=2): pass\n"
+                     "class C:\n"
+                     "    def __call__(self, u8): pass")
+    r, p = _callables(ref), _callables(port)
+    assert set(r) == set(p) == {"f", "C.__call__"}
+    assert _missing_params(r["f"], p["f"]) == ["a"]
+    assert _missing_params(r["C.__call__"], p["C.__call__"]) == [
+        "u8_block", "interpret"]
+    fwd = ast.parse("def f(x, **kw): pass").body[0]
+    assert _missing_params(r["f"], fwd) == []

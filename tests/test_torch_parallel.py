@@ -183,6 +183,48 @@ def test_station_sharded_wideband_matches_serial(devices):
     near_ref(out["mono"], jout["mono"])
 
 
+@pytest.mark.parametrize("devices", ["virtual", "alternating"])
+def test_station_sharded_wideband_batches_a_device(devices, monkeypatch):
+    """The shards that share a device run as one channelizer call a step
+    over their station slices in shard order (the calls are counted at the
+    channelizer's wrapper, whose CUDA path launches B7 once a call).  On a
+    one-device virtual mesh of 4 shards the device's channelizer is the
+    serial one and the run is bit-equal to the serial WidebandReceiver.run,
+    outputs and final state; on 4 shards that alternate between two
+    devices the outputs are within the reference's 2e-5 and in shard
+    order."""
+    from sdr_tpu_torch.ops.cuda.channelizer_kernel import PallasMFB
+    calls = []
+    call_cols = PallasMFB.call_cols
+
+    def counted(self, xbt, state, interpret=None):
+        calls.append(self.k)
+        return call_cols(self, xbt, state)
+    monkeypatch.setattr(PallasMFB, "call_cols", counted)
+    fs_wide, freqs, u8 = wideband_u8(32)
+    chan = WidebandChannelizer(fs_wide, 2.4e6, freqs, engine="pallas",
+                               ingest="u8", device="cpu")
+    rx = Receiver(0, device="cpu")
+    serial, s_final = WidebandReceiver(chan, rx).run(u8)
+    nsteps = len(calls)
+    calls.clear()
+    mesh = make_mesh(4, "stations", devices=[CPU] * 4
+                     if devices == "virtual" else MIXED * 2)
+    out, final = sharded_wideband_run(chan, rx, u8, mesh)
+    if devices == "virtual":
+        assert calls == [32] * nsteps
+        for key in serial:
+            assert torch.equal(out[key], serial[key]), key
+        assert_state_equal(final, s_final[1])
+    else:
+        assert calls == [16] * (2 * nsteps)
+        np.testing.assert_allclose(out["mono"].numpy(),
+                                   serial["mono"].numpy(), atol=2e-5)
+        np.testing.assert_allclose(final.mono.audio_tail.numpy(),
+                                   s_final[1].mono.audio_tail.numpy(),
+                                   atol=2e-5)
+
+
 def test_station_sharded_wideband_checks():
     """The reference's own checks (the pallas engine, K divisible by the
     shards) and its documented one: each slice a multiple of 8."""

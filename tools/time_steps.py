@@ -13,9 +13,13 @@ chip_smoke.py's, built with that checkout's own helpers and profiles:
   - --stations --fast (the bf16 front end, unfused feedforward chain), the
     same shape;
   - wideband mono and stereo + RDS --fast, 64 stations of one 9.6 MS/s u8
-    stream, 16 blocks a step (host-paced: the spread shows there).
-Each cell: two warm-up steps, then 7 repetitions of 10 steps between CUDA
-events; the line gives the median ms a step and the min..max.  The input
+    stream, 16 blocks a step (host-paced: the spread shows there);
+  - the wideband mono --fast run over two such steps, serial
+    (WidebandReceiver.run) and station-sharded on chip_smoke.py's virtual
+    mesh of 8 shards (parallel/wideband.py, phase 5e's call).
+Each step cell: two warm-up steps, then 7 repetitions of 10 steps between
+CUDA events; each run cell: one warm-up run, then 7 runs between CUDA
+events.  The line gives the median ms a step and the min..max.  The input
 is resident on the card.  Imports nothing of jax or sdr_tpu.
 """
 
@@ -43,6 +47,25 @@ def time_cell(step, state, blocks, reps: int = 7, steps: int = 10):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / steps)
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def time_runs(run, nsteps: int, reps: int = 7):
+    """(median, min, max) ms a step of run(), a whole run of nsteps
+    steps, between CUDA events after one warm-up run."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / nsteps)
     times.sort()
     return times[len(times) // 2], times[0], times[-1]
 
@@ -100,6 +123,16 @@ def child(root: Path) -> None:
         def step(state, blk, wrx=wrx):
             return wrx.step(state, blk)[0]
         out[name] = time_cell(step, wrx.init_state(), blocks)
+        if kw is cs.WIDE_FAST:
+            from sdr_tpu_torch.parallel.wideband import sharded_wideband_run
+            mesh = cs.virtual_mesh("stations")
+            out["wideband mono --fast, serial run"] = time_runs(
+                lambda: wrx.run(wide, blocks_per_step=cs.WIDE_BLOCKS_PER_STEP),
+                2)
+            out["wideband mono --fast, 8 virtual shards"] = time_runs(
+                lambda: sharded_wideband_run(
+                    chan, wrx.rx, wide, mesh,
+                    blocks_per_step=cs.WIDE_BLOCKS_PER_STEP), 2)
         del wrx, wide, blocks
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
