@@ -270,7 +270,9 @@ def mfb_work(pl, n_out: int, ingest: str, compute: str,
 TENSOR_CORE_KERNELS = {"mfb_tc_kernel": "HMMA",          # B7 bf16
                        "frontend_mma_kernel": "IMMA",    # B1/B2 int engines
                        "ifbank_mma_kernel": "HMMA",      # B3/B6 bf16
-                       "pair_mma_kernel": "HMMA"}        # B5 bf16
+                       "pair_mma_kernel": "HMMA",        # B5 bf16
+                       "banded_mma_kernel": "HMMA",      # tiled bf16
+                       "banded_u1_mma_kernel": "HMMA"}   # tiled bf16, U = 1
 
 
 def tensor_core_sass(lib: Path) -> None:
@@ -1069,8 +1071,12 @@ def banded_cases() -> dict:
     fm stream of 5.12 MB of u8), the RDS resampler (the bf16 baseband of
     15.36 MB) and the RRC (its float32 output); the unfused front end's I
     stream of a 5.12 MB step (RF), mode 1's mono audio and the RDS band-
-    pass at 128 stations; modes 2 and 3 at the CLI's block (25 blocks, one
-    station: mode 2's audio as the stacked mono + stereo pair)."""
+    pass at 128 stations; the ifbank joint step's audio pair (mono and
+    stereo stacked: 2 x 128 rows of its bf16 IF streams, the stereo +
+    RDS step's 768,000 samples) and its RDS resampler (float32 baseband:
+    its mixer's output); modes 2 and 3 at
+    the CLI's block (25 blocks, one station: mode 2's audio as the stacked
+    mono + stereo pair)."""
     import torch
     from sdr_tpu_torch.config import MODES
     from sdr_tpu_torch.models.receiver import Receiver
@@ -1109,6 +1115,8 @@ def banded_cases() -> dict:
                    bf16),
         "bpf": (firdes.bandpass(cfg.if_fs, cfg.rds_lo, cfg.rds_hi,
                                 cfg.bp_taps), 1, 1, STATIONS, n_rds, f32),
+        "joint_audio": (*audio(0), 2 * STATIONS, n_rds, bf16),
+        "joint_rds": (*rds(0), STATIONS, n_rds, f32),
         "audio2": (*audio(2), 2, n_if(2, STEREO_PROFILE, 25), bf16),
         "rds2": (*rds(2), 1, n_if(2, STEREO_PROFILE, 25), bf16),
         "audio3": (*audio(3), 1, n_if(3, mono, 25), bf16),
@@ -1153,6 +1161,7 @@ def check_banded(spills: dict, reps: int = 10) -> dict:
     import torch
     from sdr_tpu_torch.ops.banded import (TiledBandedFIR, tile_windows,
                                           tiled_reference)
+    from sdr_tpu_torch.ops.cuda.banded_kernel import kernel_body
     from sdr_tpu_torch.ops.resample import PolyphaseResampler
     bad = [f"{fn}: {line}" for fn, line in spills.items() if "banded" in fn]
     if bad:
@@ -1222,8 +1231,10 @@ def check_banded(spills: dict, reps: int = 10) -> dict:
                 library_ms=mm_ms, conv_ms=conv_ms, bound_ms=bound_ms,
                 bound_by=bound_by, rows=rows, n=n,
                 input=str(in_dt).replace("torch.", ""),
-                geometry=f"{up}/{down}/{len(coeff)}")
+                geometry=f"{up}/{down}/{len(coeff)}",
+                body=kernel_body(fir, in_dt))
             log(f"kernel banded/{name}: U/D/taps {up}/{down}/{len(coeff)}, "
+                f"body {results[name]['body']}, "
                 f"({rows}, {n}) {results[name]['input']} in, max|err| "
                 f"{err:.3g}, kernel {ms:.4f} ms (the wrapper's call "
                 f"{call_ms:.4f}), plain {plain_ms:.4f} ms, torch.mm "
@@ -2939,13 +2950,15 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: chip_smoke.py runs on the GPU")
+    usage = "usage: chip_smoke.py [--time-mfb CHECKOUT | --banded]"
     if sys.argv[1:2] == ["--time-mfb"]:
         if len(sys.argv) != 3:
-            raise SystemExit("usage: chip_smoke.py [--time-mfb CHECKOUT]")
+            raise SystemExit(usage)
         time_mfb(Path(sys.argv[2]).resolve())
         return 0
-    if len(sys.argv) > 1:
-        raise SystemExit("usage: chip_smoke.py [--time-mfb CHECKOUT]")
+    banded_only = sys.argv[1:] == ["--banded"]
+    if len(sys.argv) > 1 and not banded_only:
+        raise SystemExit(usage)
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
     card = card_info()
@@ -2977,6 +2990,12 @@ def main() -> int:
     log(f"  ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} "
         "registers a thread, no spills unless listed above")
     tensor_core_sass(build.library_path())
+    if banded_only:
+        # phase 1 and 2e alone: the quick check of the tiled engine
+        check_banded(spills)
+        log("phase 2e: the tiled engine's FIR agrees with its plain version "
+            "in every geometry and engine")
+        return 0
 
     from sdr_tpu_torch.models.receiver import Receiver
     bs = Receiver(MODE, **REAL_PROFILES["fast_int8"]).block_size_u8(

@@ -58,8 +58,11 @@ SIGNATURES = {
     "sdr_pll_chunked": (_I, [_I, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "sdr_mfb": (_I, [_P, _P, _I, _LL, _LL, _I, _LL, _P, _I, _I, _I, _I, _P,
                      _P, _I, _P, _P, _I, _I, _P, _P, _I, _P]),
-    "sdr_banded": (_I, [_P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _I, _P, _P,
-                        _P, _P, _P]),
+    "sdr_banded": (_I, [_P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P]),
+    "sdr_banded_mma": (_I, [_P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P]),
 }
 
 # launches of each CUDA kernel in this process, one count per kernel: a

@@ -3,7 +3,10 @@ the reference's schedule in torch) against sdr_tpu's TiledBandedFIR, in
 every geometry the tiled engine meets (RF, the four modes' audio, the RDS
 resampler of modes 0 and 2, the RRC, the band-passes) and both engines,
 over a two-block carry on numpy-seeded inputs; the CUDA kernel's terms
-(the polyphase bank, csrc/banded.cu) against the same reference; the
+(the polyphase bank, csrc/banded.cu) against the same reference; the bf16
+engine's tile map (its band tiles, group, row stride and B fragments) and
+a float64 sum over its tiles against the kernel's terms and the
+reference; the
 `group` override and the reference's error cases; and the Receiver's
 wiring of the engine.
 
@@ -20,7 +23,11 @@ from sdr_tpu_torch.config import MODES
 from sdr_tpu_torch.models.receiver import Receiver
 from sdr_tpu_torch.ops import firdes
 from sdr_tpu_torch.ops.banded import TiledBandedFIR, _tile_band_matrix
-from sdr_tpu_torch.ops.cuda.banded_kernel import banded, polyphase_bank
+from sdr_tpu_torch.ops.cuda.banded_kernel import (MMA_K, MMA_N, U1_BODIES,
+                                                  U1_PHASE, banded,
+                                                  kernel_body, polyphase_bank,
+                                                  tile_map, tile_sum, u1_sum,
+                                                  u1_tile)
 from sdr_tpu_torch.ops.resample import PolyphaseResampler, _build_filter_bank
 
 REL = 1e-5
@@ -128,6 +135,139 @@ def test_kernel_terms_match_reference(geom, engine):
         jy, jt = ref(jnp.asarray(x), jt)
         _close(_kernel_terms(port, torch.from_numpy(x), tt), jy)
         tt = torch.from_numpy(x[:, -port.state_len:]).to(tdt)
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=IDS)
+def test_tile_map_covers_band(geom, engine):
+    """The tile map the bf16 engine's kernel takes (csrc/banded.cu
+    banded_mma_kernel): rows every group * D samples on a 16-byte
+    boundary, padded onto distinct bank groups where the window is
+    converted; for each shift of the band (8 where the rows are read
+    straight from the ring, else 1) its tiles, each holding a non-zero of
+    the band, cover every non-zero of the polyphase bank exactly once for
+    each super-block of a row, in the order the kernel walks them; the B
+    fragments unpack to those tiles; and a float64 sum over the tiles of
+    each shift equals the kernel's terms and the reference over a carried
+    block."""
+    _, coeff, up, down = geom
+    tdt, jdt = ENGINES[engine]
+    port = TiledBandedFIR(coeff, up, down, compute_dtype=tdt, device="cpu")
+    ref = JaxTiled(coeff, up, down, compute_dtype=jdt)
+    tm = tile_map(port._bank, up, down, port.M)
+    assert tm.adv == tm.group * down and tm.adv % 8 == 0
+    assert tm.cols == tm.group * up >= 16 and tm.pad in (0, 8)
+    assert ((tm.adv + tm.pad) // 8) % 2 == 1
+    assert tm.direct == (tm.pad == 0) and tm.shifts == (8 if tm.direct else 1)
+    p = polyphase_bank(port._bank, up, down, port.M)
+    d = (np.arange(up) * down) // up
+    support = np.zeros(tm.band.shape, bool)
+    for g in range(tm.group):
+        for v in range(up):
+            k = g * down + d[v] + np.arange(port.M)
+            support[k, g * up + v] = True
+            np.testing.assert_array_equal(tm.band[k, g * up + v], p[:, v])
+    assert not tm.band[~support].any()
+    if engine == "bf16":
+        bits = torch.from_numpy(tm.frags.view(np.int16)).view(torch.bfloat16)
+        frags = bits.float().numpy()
+        assert len(frags) == len(tm.tiles)
+    else:
+        assert tm.frags is None
+    t, g = np.arange(32) % 4, np.arange(32) // 4
+    start = port.state_len - (port.M - 1)
+    blocks = _blocks(port, seed=5 * up + down)
+    for sh in range(tm.shifts):
+        band, sup = tm.shifted_band(sh), np.roll(support, sh, axis=0)
+        assert not sup[:sh].any()
+        cover = np.zeros(band.shape, int)
+        tiles = tm.shift_tiles(sh)
+        for kt, nt in tiles:
+            ks = slice(MMA_K * kt, MMA_K * (kt + 1))
+            ns = slice(MMA_N * nt, MMA_N * (nt + 1))
+            assert sup[ks, ns].any(), (sh, kt, nt)
+            cover[ks, ns] += 1
+        assert cover.max() == 1 and (cover[sup] == 1).all()
+        # the kernel's walk: a chunk's k-tiles ascending, its n-tiles within
+        walk = []
+        for cc, (klo, khi, first, _, *lohi) in enumerate(tm.chunks[sh]):
+            assert first == tm.chunks[sh, 0, 2] + len(walk)
+            lo, hi = lohi[:4], lohi[4:]
+            walk += [(kt, 4 * cc + j) for kt in range(klo, khi + 1)
+                     for j in range(4) if lo[j] <= kt <= hi[j]]
+        np.testing.assert_array_equal(np.asarray(walk), tiles)
+        if engine == "bf16":
+            for i, (kt, nt) in enumerate(tiles):
+                tile = np.zeros((MMA_K, MMA_N), np.float32)
+                f = frags[tm.chunks[sh, 0, 2] + i]
+                for r, rows in enumerate((2 * t, 2 * t + 1, 2 * t + 8,
+                                          2 * t + 9)):
+                    tile[rows, g] = f[:, r]
+                np.testing.assert_array_equal(
+                    tile, band[MMA_K * kt:MMA_K * (kt + 1),
+                               MMA_N * nt:MMA_N * (nt + 1)])
+        jt, tt = ref.init_state((2,)), port.init_state((2,))
+        for x in blocks:
+            jy, jt = ref(jnp.asarray(x), jt)
+            xt = torch.from_numpy(x)
+            xp = torch.cat([tt, xt.to(tdt)], -1).double().numpy()
+            got = tile_sum(tm, xp, start, x.shape[-1] // down * up, sh)
+            want = _kernel_terms(port, xt, tt)
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+            _close(got, jy)
+            tt = xt[:, -port.state_len:].to(tdt)
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+@pytest.mark.parametrize("geom", [g for g in GEOMETRIES if g[2] == 1],
+                         ids=[g[0] for g in GEOMETRIES if g[2] == 1])
+def test_u1_tile_terms(geom, engine):
+    """The U = 1 body's Toeplitz tile of the taps (csrc/banded.cu
+    banded_u1_mma_kernel, taken at the D and taps of U1_BODIES): row r
+    holds the taps D r + U1_PHASE columns in, and a float64 sum of it over
+    the window columns equals the kernel's terms and the reference over a
+    carried block."""
+    _, coeff, up, down = geom
+    tdt, jdt = ENGINES[engine]
+    port = TiledBandedFIR(coeff, up, down, compute_dtype=tdt, device="cpu")
+    ref = JaxTiled(coeff, up, down, compute_dtype=jdt)
+    assert (down, port.M) in U1_BODIES
+    tile = u1_tile(port._bank, down, port.M)
+    assert tile.shape == (16, -(-(15 * down + port.M + U1_PHASE) // 16) * 16)
+    for r in range(16):
+        row = tile[r, down * r + U1_PHASE:down * r + U1_PHASE + port.M]
+        np.testing.assert_array_equal(row, port._bank[:port.M, 0])
+        assert np.count_nonzero(tile[r]) == np.count_nonzero(row)
+    start = port.state_len - (port.M - 1)
+    jt, tt = ref.init_state((2,)), port.init_state((2,))
+    for x in _blocks(port, seed=11 * down):
+        jy, jt = ref(jnp.asarray(x), jt)
+        xt = torch.from_numpy(x)
+        xp = torch.cat([tt, xt.to(tdt)], -1).double().numpy()
+        got = u1_sum(tile, xp, start, down, x.shape[-1] // down)
+        np.testing.assert_allclose(got, _kernel_terms(port, xt, tt),
+                                   rtol=0, atol=1e-12)
+        _close(got, jy)
+        tt = xt[:, -port.state_len:].to(tdt)
+
+
+def test_kernel_body_dispatch():
+    """Which body of csrc/banded.cu a launch runs: the bf16 engine's U = 1
+    tensor-core body at the D and taps it takes, its general body
+    elsewhere, the float32 engine's U = 1, phase and polyphase bodies
+    where sdr_banded sends them."""
+    want = {"rf": "u1", "audio0": "u1", "audio1": "u1", "audio2": "poly",
+            "audio3": "poly", "rds0": "phase", "rds2": "poly", "rrc": "u1",
+            "bpf": "u1"}
+    for name, coeff, up, down in GEOMETRIES:
+        f32 = TiledBandedFIR(coeff, up, down, device="cpu")
+        assert kernel_body(f32, torch.float32) == f"banded_{want[name]}_kernel"
+        bf = TiledBandedFIR(coeff, up, down, compute_dtype=torch.bfloat16,
+                            device="cpu")
+        body = "u1_mma" if up == 1 else "mma"
+        for dt in (torch.float32, torch.bfloat16):
+            assert kernel_body(bf, dt).startswith(f"banded_{body}_kernel")
 
 
 @pytest.mark.parametrize("geom", RESAMPLE, ids=IDS[:5])

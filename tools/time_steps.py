@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Step times of the port's receivers in two checkouts, on one card.
 
-    python3 tools/time_steps.py CHECKOUT [CHECKOUT ...]
+    python3 tools/time_steps.py [--cells NAME,...] CHECKOUT [CHECKOUT ...]
 
 Each CHECKOUT (a directory holding sdr_tpu_torch/ and chip_smoke.py, e.g.
 the parent commit unpacked with `git archive <commit> | tar -x -C
@@ -12,6 +12,8 @@ chip_smoke.py's, built with that checkout's own helpers and profiles:
   - stereo + RDS --fast, 128 stations x 15.36 MB;
   - --stations --fast (the bf16 front end, unfused feedforward chain), the
     same shape;
+  - ifbank joint (B1 bf16, the four-stream IF bank, one chunked launch
+    for both loops, the tiled engine), the same shape;
   - wideband mono and stereo + RDS --fast, 64 stations of one 9.6 MS/s u8
     stream, 16 blocks a step (host-paced: the spread shows there);
   - the wideband mono --fast run over two such steps, serial
@@ -20,7 +22,9 @@ chip_smoke.py's, built with that checkout's own helpers and profiles:
 Each step cell: two warm-up steps, then 7 repetitions of 10 steps between
 CUDA events; each run cell: one warm-up run, then 7 runs between CUDA
 events.  The line gives the median ms a step and the min..max.  The input
-is resident on the card.  Imports nothing of jax or sdr_tpu.
+is resident on the card.  --cells keeps the cells whose names start with
+the comma-separated NAMEs (e.g. `--cells "mono --fast,stereo+RDS
+--fast,ifbank"`).  Imports nothing of jax or sdr_tpu.
 """
 
 from __future__ import annotations
@@ -70,8 +74,9 @@ def time_runs(run, nsteps: int, reps: int = 7):
     return times[len(times) // 2], times[0], times[-1]
 
 
-def child(root: Path) -> None:
-    """Times the cells with root's package and helpers; prints one JSON
+def child(root: Path, cells: list[str]) -> None:
+    """Times the cells with root's package and helpers (those whose names
+    start with one of `cells`, all where it is empty); prints one JSON
     line."""
     sys.path.insert(0, str(root))
     import torch
@@ -83,6 +88,9 @@ def child(root: Path) -> None:
     dev = "cuda"
     out = {}
 
+    def want(name):
+        return not cells or any(name.startswith(c) for c in cells)
+
     def rx_step(rx):
         def step(state, blk):
             return rx.step(state, blk)[0]
@@ -92,17 +100,22 @@ def child(root: Path) -> None:
     bs = Receiver(0, device=dev, **mono_kw).block_size_u8(50)
     blocks = cs.station_blocks(cs.capture(2 * bs / 2 / 2.4e6 + 0.01), 128,
                                bs, 2, dev)
-    rx = Receiver(0, device=dev, **mono_kw)
-    out["mono --fast"] = time_cell(rx_step(rx), rx.init_state((128,)),
-                                   blocks)
-    del rx, blocks
+    if want("mono --fast"):
+        rx = Receiver(0, device=dev, **mono_kw)
+        out["mono --fast"] = time_cell(rx_step(rx), rx.init_state((128,)),
+                                       blocks)
+        del rx
+    del blocks
     stations_fast = dict(stereo=True, rds=True, fused_frontend="bf16",
                          pll_impl="ff", conv_dtype="bf16")
     sbs = Receiver(0, device=dev, **cs.STEREO_PROFILE).block_size_u8(50)
     sblocks = cs.station_blocks(cs.stereo_capture(2 * sbs / 2 / 2.4e6 + 0.01),
                                 128, sbs, 2, dev)
     for name, kw in (("stereo+RDS --fast", cs.STEREO_PROFILE),
-                     ("--stations --fast", stations_fast)):
+                     ("--stations --fast", stations_fast),
+                     ("ifbank joint", cs.IFBANK_JOINT_PROFILE)):
+        if not want(name):
+            continue
         rx = Receiver(0, device=dev, **kw)
         out[name] = time_cell(rx_step(rx), rx.init_state((128,)), sblocks)
         del rx
@@ -112,6 +125,8 @@ def child(root: Path) -> None:
     for name, kw in (("wideband mono --fast", cs.WIDE_FAST),
                      ("wideband stereo+RDS --fast",
                       dict(cs.WIDE_FAST, stereo=True, rds=True))):
+        if not want(name):
+            continue
         chan = WidebandChannelizer(cs.FS_WIDE, 2.4e6, cs.WIDE_FREQS,
                                    engine="pallas", ingest="u8",
                                    compute_dtype="bf16", device=dev)
@@ -139,10 +154,15 @@ def child(root: Path) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        child(Path(sys.argv[2]).resolve())
+    if len(sys.argv) >= 4 and sys.argv[1] == "--child":
+        child(Path(sys.argv[2]).resolve(),
+              [c for c in sys.argv[3].split(",") if c])
         return 0
-    roots = [Path(r).resolve() for r in sys.argv[1:]]
+    args = sys.argv[1:]
+    cells = ""
+    if args[:1] == ["--cells"] and len(args) >= 2:
+        cells, args = args[1], args[2:]
+    roots = [Path(r).resolve() for r in args]
     if not roots:
         raise SystemExit(__doc__)
     card = subprocess.run(
@@ -153,13 +173,13 @@ def main() -> int:
     for root in roots:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, __file__, "--child",
-                               str(root)], capture_output=True, text=True,
-                              timeout=900)
+                               str(root), cells], capture_output=True,
+                              text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr[-4000:], flush=True)
             return proc.returncode
-        cells = json.loads(proc.stdout.strip().splitlines()[-1])
-        for name, (med, lo, hi) in cells.items():
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name, (med, lo, hi) in times.items():
             print(f"{root.name or root}: {name}: {med:.3f} ms/step "
                   f"(median of 7, {lo:.3f}..{hi:.3f})", flush=True)
         print(f"{root}: {time.perf_counter() - t0:.1f} s", flush=True)
