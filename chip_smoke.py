@@ -329,7 +329,7 @@ def kernel_device_ms(fn, reps: int, symbol: str) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if symbol in e.key and e.key not in RANGES:
+        if symbol in e.key and e.key not in ranges():
             t = getattr(e, "self_device_time_total", None)
             total += e.self_cuda_time_total if t is None else t
     return total / reps / 1e3
@@ -1375,7 +1375,8 @@ def run_cli_stereo(device: str, mode: int, seconds: float = 1.2,
             f"{sep:.1f} dB, RDS PI={pi} PS={ps!r} ({groups} groups), "
             f"{secs:.2f} s wall incl. set-up")
         for line in text.splitlines():
-            if line.startswith(("processed", "step latency")):
+            if line.startswith(("processed", "spans over", "  ", "rds:",
+                                "kernel launches")):
                 log(f"  {line}")
 
 
@@ -2066,7 +2067,7 @@ def run_cli_resume(device: str, fast: bool) -> None:
 
 def scope_cost_us(scope, n: int = 200_000) -> float:
     """Host microseconds `with scope("rf_frontend"):` costs with no
-    profiler running (the loop's own cost taken out)."""
+    profiler running and tracing off (the loop's own cost taken out)."""
     t0 = time.perf_counter()
     for _ in range(n):
         with scope("rf_frontend"):
@@ -2129,8 +2130,8 @@ def run_cli_taps(device: str) -> None:
         raise AssertionError(f"--profile trace lacks {missing}")
     steps = counts["rf_frontend"]
     from torch.profiler import record_function
-    from sdr_tpu_torch.io.logger import named_scope
-    raw, cost = scope_cost_us(record_function), scope_cost_us(named_scope)
+    from sdr_tpu_torch.io.logger import stage_scope
+    raw, cost = scope_cost_us(record_function), scope_cost_us(stage_scope)
     log(f"cli 0 2 --rds --fast --profile --stats: native reader and sink; "
         f"the trace holds " + ", ".join(f"{k} x{v}" for k, v in
                                          counts.items())
@@ -2139,7 +2140,7 @@ def run_cli_taps(device: str) -> None:
         + f"; {secs:.2f} s wall incl. set-up")
     per_step = sum(counts.values()) / steps
     log(f"ranges with no profiler running (host time, mean of 200000): "
-        f"record_function {raw:.3f} us, the receiver's named_scope "
+        f"record_function {raw:.3f} us, the program's stage_scope "
         f"{cost:.3f} us; {per_step:.0f} ranges a --fast stereo + RDS step: "
         f"{cost * per_step:.2f} us a step ({raw * per_step:.2f} us as "
         "record_function)")
@@ -2184,15 +2185,13 @@ def run_options(device: str, steps: int = 2) -> None:
             + " dB)")
 
 
-# the receivers' range names (io/logger.py named_scope): a trace holds them
-# as annotations beside the kernels, and the device time they span is
-# not a kernel's
-RANGES = {"rf_frontend", "demod", "mono_path", "ifbank_fused",
-          "ifbank_fused_mix", "carrier_ff_pair", "carrier_ff_from_sums",
-          "carrier_ffmix", "pll_joint", "audio_resample_pair",
-          "audio_pair_kernel", "channelize", "wideband_ingest"} | {
-    f"pll_{e}" for e in ("scan", "pallas", "chunked", "pallas_chunked",
-                         "ff")}
+def ranges() -> frozenset:
+    """The program's span names (io/logger.py NAMES, imported when asked:
+    --time-mfb imports another checkout's package): a trace holds them as
+    annotations beside the kernels, and the device time they span is not
+    a kernel's."""
+    from sdr_tpu_torch.io.logger import NAMES
+    return frozenset(NAMES)
 # kernel symbol in a profiler trace -> the LAUNCHES keys that launch it
 # (the front end's and the IF bank's float and tensor-core kernels)
 KERNEL_SYMBOLS = {"frontend_": ("frontend_demod", "frontend"),
@@ -2251,9 +2250,9 @@ def profile_steps(rx, state, blocks, step_ms: float, steps: int = 10,
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
-            # ProfilerStep* is the schedule's span of a step and RANGES
-            # the receiver's stages, not kernels
-            if t > 0 and e.key not in RANGES and not e.key.startswith(
+            # ProfilerStep* is the schedule's span of a step and ranges()
+            # the program's spans, not kernels
+            if t > 0 and e.key not in ranges() and not e.key.startswith(
                     ("aten::", "cuda", "ProfilerStep")):
                 rows.append((t / steps / 1e3, e.count, e.key))
         lost = []
@@ -2360,7 +2359,7 @@ def launched_ms(fn, key: str, symbol: str, tries: int = 3
         launched = LAUNCHES[key] - before
         total, events = 0.0, 0
         for e in prof.key_averages():
-            if symbol in e.key and e.key not in RANGES:
+            if symbol in e.key and e.key not in ranges():
                 t = getattr(e, "self_device_time_total", None)
                 total += e.self_cuda_time_total if t is None else t
                 events += e.count

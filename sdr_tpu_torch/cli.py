@@ -19,7 +19,9 @@ carrier synthesis + mixers and the audio pair) and the feedforward
 carrier engine; `--exact-fast` the exact-integer front end.  Host I/O
 goes through the native bounded-ring reader and writer threads
 (sdr_tpu_torch/native) where a host compiler built them, else through
-synchronous reads and writes; `--stats` says which ran.
+synchronous reads and writes; `--stats` says which ran, and prints the
+program's spans (io/logger.py: the stream loop's read, step and drain,
+the receiver's stages, the RDS decoder) and counters a step.
 
 Other entry points and taps, as in the reference:
   --stations A,B,...  decode N captures in one batched step each, with
@@ -148,6 +150,7 @@ def main(argv: list[str] | None = None) -> int:
         return _run_stations(args, cfg, stereo, rds, device)
 
     from sdr_tpu_torch.io import wav as wavio
+    from sdr_tpu_torch.io.logger import stage_scope as scope
     from sdr_tpu_torch.io.stream import interleave_stereo_s16, pack_s16
     from sdr_tpu_torch.models.receiver import Receiver
 
@@ -184,42 +187,44 @@ def main(argv: list[str] | None = None) -> int:
                 if args.psd_anim else None)
 
     def drain(out):
-        if stereo:
-            pcm = interleave_stereo_s16(out["left"], out["right"])
-        else:
-            pcm = pack_s16(out["mono"])
-        pcm = pcm.cpu().numpy()
-        sink.write(pcm.astype("<i2").tobytes())
-        wav_chunks.append(pcm)
-        if rds_decoder is not None and rds_decoder.push(
-                out["rds_soft"].float().cpu().numpy()):
-            info = rds_decoder.info
-            print(f"RDS: PI={info.pi:#06x} PTY={info.pty_name!r} "
-                  f"PS={info.ps_name!r} RT={info.radio_text.rstrip()!r} "
-                  f"({info.groups_seen} groups"
-                  + (f", {rds_decoder.bits_corrected} bits corrected)"
-                     if rds_decoder.bits_corrected else ")"),
-                  file=sys.stderr)
-        if "fm_demod" in out:
-            if if_chunks is not None:
-                if_chunks.append(out["fm_demod"].float().cpu().numpy())
-            if psd_anim is not None:
-                psd_anim.push(out["fm_demod"])
+        with scope("cli.drain"):
+            if stereo:
+                pcm = interleave_stereo_s16(out["left"], out["right"])
+            else:
+                pcm = pack_s16(out["mono"])
+            pcm = pcm.cpu().numpy()
+            sink.write(pcm.astype("<i2").tobytes())
+            wav_chunks.append(pcm)
+            if rds_decoder is not None and rds_decoder.push(
+                    out["rds_soft"].float().cpu().numpy()):
+                info = rds_decoder.info
+                print(f"RDS: PI={info.pi:#06x} PTY={info.pty_name!r} "
+                      f"PS={info.ps_name!r} RT={info.radio_text.rstrip()!r} "
+                      f"({info.groups_seen} groups"
+                      + (f", {rds_decoder.bits_corrected} bits corrected)"
+                         if rds_decoder.bits_corrected else ")"),
+                      file=sys.stderr)
+            if "fm_demod" in out:
+                if if_chunks is not None:
+                    if_chunks.append(out["fm_demod"].float().cpu().numpy())
+                if psd_anim is not None:
+                    psd_anim.push(out["fm_demod"])
+
+    def to_device(raw):
+        with scope("receiver.h2d"):
+            return torch.tensor(raw).to(device)
 
     n_in = 0
-    step_times: list[float] = []
     pending = None  # host drain of step k overlaps device work of step k+1
     t0 = time.perf_counter()
     src, reader = _block_source(fin, block_size)
     sink, writer = _audio_sink(fout)
     try:
-        with _profiling(args.profile, device):
-            for raw in src:
+        with _profiling(args.profile, device), _stats(args.stats) as launches0:
+            for raw in _read(src):
                 if args.trace_iq is not None and n_in == 0:
                     _trace_iq(args.trace_iq, raw, rx)
-                ts = time.perf_counter()
-                state, out = rx.step(state, torch.tensor(raw).to(device))
-                step_times.append(time.perf_counter() - ts)
+                state, out = rx.step(state, to_device(raw))
                 if pending is not None:
                     drain(pending)
                 pending = out
@@ -228,8 +233,7 @@ def main(argv: list[str] | None = None) -> int:
             tail = src.tail()
             tail_n = (len(tail) // rx.block_align_u8()) * rx.block_align_u8()
             if tail_n:
-                state, out = rx.step(
-                    state, torch.tensor(tail[:tail_n]).to(device))
+                state, out = rx.step(state, to_device(tail[:tail_n]))
                 if pending is not None:
                     drain(pending)
                 pending = out
@@ -251,15 +255,7 @@ def main(argv: list[str] | None = None) -> int:
               f"= {ms:.2f} MS/s ({ms*1e6/cfg.rf_fs:.1f}x real time) "
               f"on {_device_name(device)}", file=sys.stderr)
         print(f"host I/O: {reader} reader, {writer} sink", file=sys.stderr)
-        if len(step_times) > 1:
-            # skip the first step (kernel build and warm-up); this is the
-            # host's dispatch time per step, not the device's compute time
-            st = sorted(step_times[1:])
-            p50 = st[len(st) // 2] * 1e3
-            p95 = st[int(len(st) * 0.95)] * 1e3
-            blk_ms = block_size / 2 / cfg.rf_fs * 1e3
-            print(f"step latency: p50 {p50:.1f} ms / p95 {p95:.1f} ms per "
-                  f"{blk_ms:.1f} ms RF block step", file=sys.stderr)
+        _print_stats(launches0)
     print("End of input stream reached!", file=sys.stderr)
     if args.wav and wav_chunks:
         audio = np.concatenate(wav_chunks)
@@ -290,6 +286,68 @@ def main(argv: list[str] | None = None) -> int:
               f"({info.groups_seen} groups)"
               if info.pi is not None else "RDS: no sync", file=sys.stderr)
     return 0
+
+
+def _read(src):
+    """The blocks of `src`, each read inside the span cli.read (the wait
+    for stdin, the file or the native reader's ring)."""
+    from sdr_tpu_torch.io.logger import stage_scope as scope
+    it = iter(src)
+    while True:
+        with scope("cli.read"):
+            raw = next(it, None)
+        if raw is None:
+            return
+        yield raw
+
+
+@contextlib.contextmanager
+def _stats(on: bool):
+    """With --stats, the program's spans and counters start from zero and
+    are kept through the body, with no profiler needed.  Yields the CUDA
+    kernel launches counted so far (build.LAUNCHES)."""
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    if not on:
+        yield 0
+        return
+    from sdr_tpu_torch.io import logger
+    logger.reset_stage_times()
+    logger.set_tracing(True)
+    try:
+        yield sum(LAUNCHES.values())
+    finally:
+        logger.set_tracing(False)
+
+
+def _print_stats(launches0: int) -> None:
+    """--stats' table: each span's count, its mean and self ms a step
+    (self: less its child spans), its total s; the RDS counters; the CUDA
+    kernel launches a step (build.LAUNCHES).  A step is one
+    Receiver.step."""
+    from sdr_tpu_torch.io import logger
+    from sdr_tpu_torch.ops.cuda.build import LAUNCHES
+    spans, counters = logger.totals()
+    own = logger.self_times()
+    steps = spans.get("receiver.step", (0.0, 0))[1]
+    if not steps:
+        return
+    order = {n: i for i, n in enumerate(logger.NAMES)}
+    print(f"spans over {steps} steps: count, mean ms a step, self ms a "
+          "step, total s", file=sys.stderr)
+    for name in sorted(spans, key=lambda n: order.get(n, len(order))):
+        total, n = spans[name]
+        print(f"  {name:<20} {n:>7} {total / steps * 1e3:>10.3f} "
+              f"{own[name] / steps * 1e3:>10.3f} {total:>9.3f}",
+              file=sys.stderr)
+    if "rds.windows" in counters:
+        w, g = counters["rds.windows"], counters.get("rds.groups", 0)
+        print(f"rds: {w} windows, {g} groups"
+              + (f" ({100.0 * g / w:.1f}% of windows)" if w else "")
+              + f", {counters.get('rds.sync_losses', 0)} sync losses, "
+              f"{counters.get('rds.bits_corrected', 0)} bits corrected",
+              file=sys.stderr)
+    launches = sum(LAUNCHES.values()) - launches0
+    print(f"kernel launches a step: {launches / steps:.1f}", file=sys.stderr)
 
 
 @contextlib.contextmanager
@@ -444,6 +502,7 @@ def _run_stations(args, cfg, stereo: bool, rds: bool,
     fused IF bank or the tiled convs (sdr_tpu/cli.py:404-405).
     """
     from sdr_tpu_torch.io import wav as wavio
+    from sdr_tpu_torch.io.logger import stage_scope as scope
     from sdr_tpu_torch.models.receiver import Receiver
 
     paths = [p for p in args.stations.split(",") if p]
@@ -473,30 +532,38 @@ def _run_stations(args, cfg, stereo: bool, rds: bool,
     audio_chunks: list[np.ndarray] = []
 
     def drain(out):
-        if stereo:
-            audio_chunks.append(np.stack(
-                [out["left"].float().cpu().numpy(),
-                 out["right"].float().cpu().numpy()], axis=-1))
-        else:
-            audio_chunks.append(out["mono"].float().cpu().numpy())
-        if mrds is not None:
-            # live per-station decode: groups print as they arrive
-            for i, _groups in mrds.push(out["rds_soft"].float().cpu().numpy()):
-                info = mrds.info(i)
-                print(f"  station {i} RDS: PI={info.pi:#06x} "
-                      f"PS={info.ps_name!r} RT={info.radio_text.rstrip()!r} "
-                      f"({info.groups_seen} groups)", file=sys.stderr)
+        with scope("cli.drain"):
+            if stereo:
+                audio_chunks.append(np.stack(
+                    [out["left"].float().cpu().numpy(),
+                     out["right"].float().cpu().numpy()], axis=-1))
+            else:
+                audio_chunks.append(out["mono"].float().cpu().numpy())
+            if mrds is not None:
+                # live per-station decode: groups print as they arrive
+                soft = out["rds_soft"].float().cpu().numpy()
+                for i, _groups in mrds.push(soft):
+                    info = mrds.info(i)
+                    print(f"  station {i} RDS: PI={info.pi:#06x} "
+                          f"PS={info.ps_name!r} "
+                          f"RT={info.radio_text.rstrip()!r} "
+                          f"({info.groups_seen} groups)", file=sys.stderr)
 
     pending = None  # host slicing and drain overlap the device's step
-    with _profiling(args.profile, device):
+    with _profiling(args.profile, device), _stats(args.stats) as launches0:
         for off in range(0, n - bs + 1, bs):
-            batch = np.stack([m[off:off + bs] for m in maps])
-            state, out = rx.step(state, torch.from_numpy(batch).to(device))
+            with scope("cli.read"):
+                batch = np.stack([m[off:off + bs] for m in maps])
+            with scope("receiver.h2d"):
+                blk = torch.from_numpy(batch).to(device)
+            state, out = rx.step(state, blk)
             if pending is not None:
                 drain(pending)
             pending = out
         if pending is not None:
             drain(pending)
+    if args.stats:
+        _print_stats(launches0)
 
     full = np.concatenate(audio_chunks, axis=1)
     for i, path in enumerate(paths):

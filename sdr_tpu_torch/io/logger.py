@@ -3,11 +3,12 @@
 Port of sdr_tpu/io/logger.py.  Reference: src/logfunc.cpp:14-43
 (`genIndexVector`, `logVector`).  Each dump is an x/y two-column text file
 consumed by the reference's gnuplot scripts (data/example.gnuplot etc.).
-The NumPy functions are copies of the reference's; `stage_scope` names a
-range in torch.profiler traces (`record_function`) where the reference
-annotates jax.profiler traces, and records its wall time as the
-reference's does; `named_scope` is the receivers' range, opened only
-while a profiler records.
+The NumPy functions are copies of the reference's.  `stage_scope` is
+the program's one span, where the reference annotates jax.profiler
+traces: a `record_function` range in torch.profiler traces and a total
+and count of its wall time per name, kept only while a profiler records
+or the CLI's --stats asks (set_tracing); `count` keeps the program's
+counters under the same switch.  NAMES lists every span and counter.
 """
 
 from __future__ import annotations
@@ -65,39 +66,123 @@ class PsdAnimWriter:
         self._f.close()
 
 
-@contextlib.contextmanager
+# Every span and counter name of the program.  Readers: the CLI's --stats
+# table, benchmark/metrics/, tools/trace_gaps.py, chip_smoke.py's ranges()
+# (a range is not a kernel) and the tests (every `stage_scope` and `count`
+# of the package names one of these).
+NAMES = (
+    # the receiver's host side (models/receiver.py)
+    "receiver.run", "receiver.h2d", "receiver.step",
+    # its stages, inside receiver.step
+    "rf_frontend", "demod", "mono_path", "if_filters", "ifbank_fused",
+    "ifbank_fused_mix", "carrier_ff_pair", "carrier_ff_from_sums",
+    "carrier_ffmix", "pll_joint", "pll_scan", "pll_pallas", "pll_chunked",
+    "pll_pallas_chunked", "pll_ff", "audio_resample_pair",
+    "audio_pair_kernel", "stereo_matrix", "rds_resample", "rds_rrc",
+    # the wideband receiver (models/wideband.py)
+    "channelize", "wideband_ingest",
+    # the host RDS decoder (rds/streaming.py)
+    "rds.push", "rds.symbols", "rds.framing",
+    # the CLI's stream loops (cli.py)
+    "cli.read", "cli.drain",
+    # counters (rds/streaming.py), added once a push
+    "rds.windows", "rds.groups", "rds.sync_losses", "rds.bits_corrected",
+)
+
+_profiler_enabled = torch.autograd._profiler_enabled
+_tracing = False                  # set_tracing(True): on with no profiler
+_NULL = contextlib.nullcontext()  # the span while tracing is off
+_SPANS: dict[str, list] = {}      # name -> [total_s, count, children_s]
+_COUNTS: dict[str, int] = {}
+_OPEN: list = []                  # spans open now, innermost last
+
+
+class _Span:
+    """One open span: a record_function range while a profiler records,
+    and its perf_counter duration added to its name's total (and to its
+    parent's children) on exit."""
+
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._range = None
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        _OPEN.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        _OPEN.pop()
+        rec = _SPANS.get(self.name)
+        if rec is None:
+            rec = _SPANS[self.name] = [0.0, 0, 0.0]
+        rec[0] += dt
+        rec[1] += 1
+        if _OPEN:
+            _SPANS.setdefault(_OPEN[-1].name, [0.0, 0, 0.0])[2] += dt
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
 def stage_scope(name: str):
-    """Named profiling scope: shows up in torch.profiler traces and
-    records wall time.  Usage: `with stage_scope('rf_frontend'): ...`."""
-    with torch.profiler.record_function(name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _STAGE_TIMES.setdefault(name, []).append(time.perf_counter() - t0)
+    """The program's span: `with stage_scope('rf_frontend'): ...`.
+
+    On while a torch profiler records, or after set_tracing(True) (the
+    CLI's --stats).  Then it opens a record_function range named `name`
+    while the profiler records (its start, end and parent in the trace, on
+    the clock of the device's kernels and copies), and adds its wall time
+    to an O(1) total and count per name (totals(), stage_times()).  Off,
+    it returns one shared null context: no allocation, no clock read, no
+    sync.  Spans nest within one thread; `name` is one of NAMES."""
+    if not (_tracing or _profiler_enabled()):
+        return _NULL
+    return _Span(name)
 
 
-_STAGE_TIMES: dict[str, list[float]] = {}
+named_scope = stage_scope  # the receivers' earlier name for the span
 
 
-def named_scope(name: str):
-    """A range named `name` in torch.profiler traces: the counterpart of
-    the reference's jax.named_scope on its receiver's stages.  The range
-    is opened only while a profiler records: record_function costs about
-    ten microseconds of host time a call even with no profiler running,
-    a null context under one (PERF.md).  No sync, no copy."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name` (one of NAMES), under stage_scope's
+    switch."""
+    if _tracing or _profiler_enabled():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def set_tracing(on: bool) -> None:
+    """Record spans and counters with no profiler running (--stats)."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def totals() -> tuple[dict[str, tuple[float, int]], dict[str, int]]:
+    """({span: (total seconds, count)}, {counter: value}) since the last
+    reset_stage_times()."""
+    return ({k: (v[0], v[1]) for k, v in _SPANS.items() if v[1]},
+            dict(_COUNTS))
+
+
+def self_times() -> dict[str, float]:
+    """Total seconds of each span less the seconds its child spans took."""
+    return {k: v[0] - v[2] for k, v in _SPANS.items() if v[1]}
 
 
 def stage_times() -> dict[str, float]:
     """Mean wall time per recorded stage (seconds)."""
-    return {k: float(np.mean(v)) for k, v in _STAGE_TIMES.items()}
+    return {k: v[0] / v[1] for k, v in _SPANS.items() if v[1]}
 
 
 def reset_stage_times() -> None:
-    _STAGE_TIMES.clear()
+    """Clear every span total and counter."""
+    _SPANS.clear()
+    _COUNTS.clear()
 
 
 def print_real_vector(x, max_elems: int = 10) -> str:

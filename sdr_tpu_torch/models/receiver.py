@@ -18,10 +18,14 @@ for the estimator), the carrier loops, the fused synthesis and the audio
 pair; the rest is plain PyTorch (the fft engine on torch.fft).  PyTorch
 runs eagerly, so `run` is a Python loop over blocks where the reference
 scans.  Independent stations batch over leading axes of the u8 block.
-The stages carry the reference's profiler scope names as ranges in
-torch.profiler traces (io/logger.py `named_scope`: rf_frontend, demod,
-mono_path, ifbank_fused, carrier_ffmix, pll_<impl>, audio_pair_kernel,
-...), opened only while a profiler records.
+The stages carry the reference's profiler scope names as spans
+(io/logger.py `stage_scope`: rf_frontend, demod, mono_path, ifbank_fused,
+carrier_ffmix, pll_<impl>, audio_pair_kernel, ...; the unfused IF
+filters as if_filters, the stereo matrix as stereo_matrix, the RDS
+resampler and RRC as rds_resample and rds_rrc), inside receiver.step;
+`run` adds receiver.run around the call and receiver.h2d around each
+step's copy to the device.  The spans are kept only while a profiler
+records or the CLI's --stats asks.
 
 `conv_engine='tiled'` (the `--fast` engine) runs every direct-engine
 resampling FIR and the RDS resampler through ops/banded.py
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.config import ModeConfig, get_mode
-from sdr_tpu_torch.io.logger import named_scope as scope
+from sdr_tpu_torch.io.logger import stage_scope as scope
 from sdr_tpu_torch.io.stream import decode_u8_iq
 from sdr_tpu_torch.models.state import (FrontEndState, MonoState, RdsState,
                                         ReceiverState, StereoState)
@@ -389,6 +393,10 @@ class Receiver:
 
         Outputs: 'mono' always; 'left'/'right' when stereo; 'rds_soft' (RRC
         output at SPS*2375) when rds."""
+        with scope("receiver.step"):
+            return self._step(state, iq_u8)
+
+    def _step(self, state, iq_u8):
         if self.fused_frontend and self._fuse_demod:
             with scope("rf_frontend"):
                 fm_demod, i_tail, prev_i, prev_q, psum = (
@@ -499,15 +507,17 @@ class Receiver:
         else:
             stereo_audio, stereo_audio_tail = self.stereo_audio_resampler(
                 mixed, st.stereo_audio_tail)
-        # delayed mono against the BPF group delay (src/project.cpp:152-159)
-        mono_shift, mono_delay = delay_line(mono_audio, st.mono_delay)
-        left, right = lr_matrix(mono_shift, stereo_audio)
-        deemph_l, deemph_r = st.deemph_l, st.deemph_r
-        if self.deemph_alpha is not None:
-            left, deemph_l = first_order_iir(left, deemph_l,
-                                             alpha=self.deemph_alpha)
-            right, deemph_r = first_order_iir(right, deemph_r,
-                                              alpha=self.deemph_alpha)
+        with scope("stereo_matrix"):
+            # delayed mono against the BPF group delay
+            # (src/project.cpp:152-159)
+            mono_shift, mono_delay = delay_line(mono_audio, st.mono_delay)
+            left, right = lr_matrix(mono_shift, stereo_audio)
+            deemph_l, deemph_r = st.deemph_l, st.deemph_r
+            if self.deemph_alpha is not None:
+                left, deemph_l = first_order_iir(left, deemph_l,
+                                                 alpha=self.deemph_alpha)
+                right, deemph_r = first_order_iir(right, deemph_r,
+                                                  alpha=self.deemph_alpha)
         outputs["left"], outputs["right"] = left, right
         stereo_state = StereoState(carriers["channel_tail"],
                                    carriers["carrier_tail"],
@@ -549,25 +559,10 @@ class Receiver:
                     (channel, pilot, rds_channel, rds_carrier_in,
                      c["channel_tail"]) = self._ifbank(fm_demod,
                                                        st.channel_tail)
-            elif self.if_bpf3 is not None:
-                (channel, pilot, rds_channel), c["channel_tail"] = (
-                    self.if_bpf3(fm_demod, st.channel_tail))
-            elif self.stereo_bpf is not None:
-                (channel, pilot), c["channel_tail"] = self.stereo_bpf(
-                    fm_demod, st.channel_tail)
-            else:
-                channel, c["channel_tail"] = self.channel_filter(
-                    fm_demod, st.channel_tail)
-                pilot, c["carrier_tail"] = self.carrier_filter(
-                    fm_demod, st.carrier_tail)
-        if self.rds and rds_channel is None:
-            # channel extraction 54-60 kHz (reference src/project.cpp:245)
-            rds_channel, c["rds_channel_tail"] = self.rds_channel_filter(
-                fm_demod, rs.channel_tail)
-        if self.rds and self._ifbank is None:
-            # squaring nonlinearity -> 114 kHz line (project.cpp:248-252)
-            rds_carrier_in, c["rds_carrier_tail"] = self.rds_carrier_filter(
-                rds_channel * rds_channel, rs.carrier_tail)
+        if self._ifbank is None:
+            with scope("if_filters"):
+                channel, pilot, rds_channel, rds_carrier_in = (
+                    self._if_filters(state, fm_demod, c))
 
         if self._fused_synth:
             # estimate only (per-window math), then one CUDA pass
@@ -644,6 +639,36 @@ class Receiver:
                     nco_scale=0.5, norm_bandwidth=self.rds_pll_bandwidth)
         return channel, rds_channel, c
 
+    def _if_filters(self, state, fm_demod, c):
+        """The unfused IF band-pass filters: (channel, pilot, rds_channel,
+        rds_carrier_in), each None where the profile has no such stream;
+        their new tails go into `c`."""
+        channel = pilot = rds_channel = rds_carrier_in = None
+        rs = state.rds
+        if self.stereo:
+            st = state.stereo
+            if self.if_bpf3 is not None:
+                (channel, pilot, rds_channel), c["channel_tail"] = (
+                    self.if_bpf3(fm_demod, st.channel_tail))
+            elif self.stereo_bpf is not None:
+                (channel, pilot), c["channel_tail"] = self.stereo_bpf(
+                    fm_demod, st.channel_tail)
+            else:
+                channel, c["channel_tail"] = self.channel_filter(
+                    fm_demod, st.channel_tail)
+                pilot, c["carrier_tail"] = self.carrier_filter(
+                    fm_demod, st.carrier_tail)
+        if self.rds:
+            if rds_channel is None:
+                # channel extraction 54-60 kHz (reference
+                # src/project.cpp:245)
+                rds_channel, c["rds_channel_tail"] = (
+                    self.rds_channel_filter(fm_demod, rs.channel_tail))
+            # squaring nonlinearity -> 114 kHz line (project.cpp:248-252)
+            rds_carrier_in, c["rds_carrier_tail"] = self.rds_carrier_filter(
+                rds_channel * rds_channel, rs.carrier_tail)
+        return channel, pilot, rds_channel, rds_carrier_in
+
     def _pll(self, x, st, **kw):
         """One carrier through the selected engine: (nco, new_state)."""
         with scope(f"pll_{self.pll_impl}"):
@@ -672,8 +697,11 @@ class Receiver:
             # all-pass delay aligning channel to carrier (project.cpp:260)
             chan_delayed, delay = delay_line(rds_channel, rs.delay)
             baseband = mixer(c["nco_r"], chan_delayed)
-        resampled, lpf_tail = self.rds_resampler(baseband, rs.lpf_resamp_tail)
-        soft, rrc_tail = self.rds_rrc(resampled, rs.rrc_tail)
+        with scope("rds_resample"):
+            resampled, lpf_tail = self.rds_resampler(baseband,
+                                                     rs.lpf_resamp_tail)
+        with scope("rds_rrc"):
+            soft, rrc_tail = self.rds_rrc(resampled, rs.rrc_tail)
         return RdsState(c["rds_channel_tail"], c["rds_carrier_tail"],
                         c["pll_r"], delay, lpf_tail, rrc_tail), soft
 
@@ -718,17 +746,20 @@ class Receiver:
         `unroll` (the reference's scan unrolling) is accepted and has no
         effect: the steps run eagerly.
         """
-        iq_u8 = torch.as_tensor(iq_u8)
-        *lead, n = iq_u8.shape
-        if state is None:
-            state = self.init_state(tuple(lead))
-        chunks: dict[str, list[torch.Tensor]] = {}
-        for off, size in self.spans(n, blocks_per_step):
-            blk = iq_u8[..., off:off + size].to(self.device).contiguous()
-            state, out = self.step(state, blk)
-            for k, v in out.items():
-                chunks.setdefault(k, []).append(v)
-        return concat_steps(chunks, len(lead)), state
+        with scope("receiver.run"):
+            iq_u8 = torch.as_tensor(iq_u8)
+            *lead, n = iq_u8.shape
+            if state is None:
+                state = self.init_state(tuple(lead))
+            chunks: dict[str, list[torch.Tensor]] = {}
+            for off, size in self.spans(n, blocks_per_step):
+                with scope("receiver.h2d"):
+                    blk = iq_u8[..., off:off + size].to(
+                        self.device).contiguous()
+                state, out = self.step(state, blk)
+                for k, v in out.items():
+                    chunks.setdefault(k, []).append(v)
+            return concat_steps(chunks, len(lead)), state
 
     def spans(self, n: int, blocks_per_step: int = 1
               ) -> list[tuple[int, int]]:

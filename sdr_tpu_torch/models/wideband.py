@@ -21,7 +21,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from sdr_tpu_torch.io.logger import named_scope as scope
+from sdr_tpu_torch.io.logger import stage_scope as scope
 from sdr_tpu_torch.io.stream import decode_u8_iq
 from sdr_tpu_torch.models.receiver import Receiver
 from sdr_tpu_torch.ops.channelizer import WidebandChannelizer

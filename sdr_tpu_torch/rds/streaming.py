@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sdr_tpu_torch.io.logger import count
+from sdr_tpu_torch.io.logger import stage_scope as scope
 from sdr_tpu_torch.rds.app import StationInfo, update_info
 from sdr_tpu_torch.rds.framing import Group, _make_group, correct_group
 
@@ -107,6 +109,8 @@ class StreamingRdsDecoder:
         self.info = StationInfo()
         self.groups: list[Group] = []
         self.bits_corrected = 0
+        self.windows = 0             # 104-bit windows frame sync tested
+        self.sync_losses = 0         # locks lost at the expected position
 
     @property
     def phase(self) -> int | None:
@@ -252,6 +256,7 @@ class StreamingRdsDecoder:
         new: list[Group] = []
         end = self._bit_base + len(self._bits)
         while self._p + 104 <= end:
+            self.windows += 1
             lo = self._p - self._bit_base
             window = self._bits[lo:lo + 104]
             hit = self._try_group(window)
@@ -276,6 +281,7 @@ class StreamingRdsDecoder:
                     # re-search (spec p.18, the reference family's only
                     # recovery behavior — SURVEY §5.3)
                     self._locked_at = -1
+                    self.sync_losses += 1
                 self._p += 1
                 # prolonged loss: unpin the 57 kHz polarity (a deep fade
                 # can re-acquire the squared carrier 180 degrees off;
@@ -297,18 +303,32 @@ class StreamingRdsDecoder:
         """Consume one block of RRC soft output; return newly synced groups.
 
         Updates self.info incrementally (PI/PS/RT live as groups arrive).
+        Spans: rds.push, inside it rds.symbols (symbol recovery, pairing,
+        differential decode) and rds.framing (frame sync and the station
+        info); the counters rds.windows, rds.groups, rds.sync_losses and
+        rds.bits_corrected take this push's share of the decoder's own.
         """
-        symbols = self._recover_symbols(np.asarray(soft_block))
-        diff_bits = self._pair_symbols(symbols)
-        if len(diff_bits):
-            prevs = np.concatenate([[self._prev_bit], diff_bits[:-1]])
-            bits = (diff_bits ^ prevs).astype(np.uint8)
-            self._prev_bit = int(diff_bits[-1])
-            self._bits = np.concatenate([self._bits, bits])
-        new = self._advance_sync()
-        for g in new:
-            update_info(self.info, g)
-        self.groups.extend(new)
+        with scope("rds.push"):
+            with scope("rds.symbols"):
+                symbols = self._recover_symbols(np.asarray(soft_block))
+                diff_bits = self._pair_symbols(symbols)
+                if len(diff_bits):
+                    prevs = np.concatenate([[self._prev_bit],
+                                            diff_bits[:-1]])
+                    bits = (diff_bits ^ prevs).astype(np.uint8)
+                    self._prev_bit = int(diff_bits[-1])
+                    self._bits = np.concatenate([self._bits, bits])
+            windows, losses, fixed = (self.windows, self.sync_losses,
+                                      self.bits_corrected)
+            with scope("rds.framing"):
+                new = self._advance_sync()
+                for g in new:
+                    update_info(self.info, g)
+            self.groups.extend(new)
+        count("rds.windows", self.windows - windows)
+        count("rds.groups", len(new))
+        count("rds.sync_losses", self.sync_losses - losses)
+        count("rds.bits_corrected", self.bits_corrected - fixed)
         return new
 
     @property

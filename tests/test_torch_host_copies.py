@@ -380,9 +380,14 @@ def test_logger_copies_equal(tmp_path):
 
 
 def test_stage_scope_records_wall_time():
+    """The span records while tracing is on (set_tracing, as --stats)."""
     tlogger.reset_stage_times()
-    with tlogger.stage_scope("demod"):
-        sum(range(1000))
+    tlogger.set_tracing(True)
+    try:
+        with tlogger.stage_scope("demod"):
+            sum(range(1000))
+    finally:
+        tlogger.set_tracing(False)
     assert set(tlogger.stage_times()) == {"demod"}
     assert tlogger.stage_times()["demod"] >= 0.0
     tlogger.reset_stage_times()
