@@ -346,6 +346,11 @@ def _print_stats(launches0: int) -> None:
               + f", {counters.get('rds.sync_losses', 0)} sync losses, "
               f"{counters.get('rds.bits_corrected', 0)} bits corrected",
               file=sys.stderr)
+        n = counters.get("rds.symbols_recovered", 0)
+        t = spans.get("rds.symbols", (0.0, 0))[0]
+        print(f"rds: {n} symbols recovered"
+              + (f", {t / n * 1e6:.3f} us a symbol in rds.symbols" if n
+                 else ""), file=sys.stderr)
     launches = sum(LAUNCHES.values()) - launches0
     print(f"kernel launches a step: {launches / steps:.1f}", file=sys.stderr)
 

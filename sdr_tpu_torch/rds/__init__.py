@@ -10,8 +10,10 @@ the live path, `StreamingRdsDecoder`, is NumPy only.
 app, framing, groups, matrix, correct, decode, streaming and tx are copies
 of their sdr_tpu/rds/ originals with only the imports renamed (importing
 sdr_tpu pulls in jax, which the GPU machine does not have), matrix.py
-with `syndromes_sliding_device` in torch; tests/test_torch_host_copies.py
-pins each copy to its original.
+with `syndromes_sliding_device` in torch, streaming.py with spans and
+counters and its CDR's symbols emitted as one array computation a push;
+tests/test_torch_host_copies.py pins each copy to its original, and
+tests/test_torch_rds_cdr.py the CDR to the original's loop bit for bit.
 """
 
 from __future__ import annotations

@@ -39,6 +39,8 @@ across slip points (tested in tests/test_rds_streaming.py).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from sdr_tpu_torch.io.logger import count
@@ -124,7 +126,7 @@ class StreamingRdsDecoder:
         """Extract symbols at round(m*sps + tau) for consecutive absolute
         symbol indices m, tracking tau across blocks (see module doc)."""
         sps = self.sps
-        buf = np.concatenate([self._soft_carry, np.asarray(soft, np.float64)])
+        buf = np.concatenate((self._soft_carry, soft), dtype=np.float64)
         n0 = self._n0
         if len(buf) < sps:
             self._soft_carry = buf
@@ -132,10 +134,13 @@ class StreamingRdsDecoder:
 
         # wrapped per-phase scores on the ABSOLUTE sample grid, over whole
         # periods only (a partial period would bias its phases whenever the
-        # envelope is non-stationary, e.g. the RRC warm-up ramp)
+        # envelope is non-stationary, e.g. the RRC warm-up ramp); a column
+        # sum of the periods adds each phase's samples in sample order from
+        # zero, as a bincount does, and column j is phase (n0 + j) % sps
         nw = (len(buf) // sps) * sps
-        ph = (n0 + np.arange(nw)) % sps
-        score = np.bincount(ph, weights=np.abs(buf[:nw]), minlength=sps)
+        col = np.abs(buf[:nw]).reshape(-1, sps).sum(0)
+        r = sps - n0 % sps
+        score = np.concatenate((col[r:], col[:r]))
         score /= max(nw // sps, 1)
         if self._blocks_seen == 0:
             self._phase_scores = score
@@ -163,22 +168,22 @@ class StreamingRdsDecoder:
             delta = (meas - self._tau + sps / 2.0) % sps - sps / 2.0
             self._tau += delta
 
-        # emit every symbol whose center falls inside the buffer
-        out = []
-        m = self._next_m
-        while True:
-            p = int(round(m * sps + self._tau)) - n0
-            if p >= len(buf):
-                break
-            out.append(buf[p] if p >= 0 else 0.0)
-            m += 1
-        self._next_m = m
+        # emit every symbol whose center falls inside the buffer: the
+        # centers of m = next_m .. an upper bound at once (rint rounds half
+        # to even, as round does), cut at the first one past the buffer
+        m0 = self._next_m
+        m_hi = math.ceil((len(buf) + n0 - self._tau + 1) / sps) + 1
+        p = np.rint(np.arange(m0, m_hi, dtype=np.int64) * sps
+                    + self._tau).astype(np.int64) - n0
+        p = p[:np.searchsorted(p, len(buf))]
+        out = np.where(p >= 0, buf.take(p, mode="clip"), 0.0)
+        m = self._next_m = m0 + len(p)
         # keep a one-symbol guard before the next center (tau may retreat)
         keep_from = min(max(int(np.floor(m * sps + self._tau)) - sps - n0, 0),
                         len(buf))
         self._soft_carry = buf[keep_from:]
         self._n0 = n0 + keep_from
-        return np.asarray(out, dtype=np.float64)
+        return out
 
     # -------------------------------------------------------------- pairing
     def _pair_symbols(self, symbols: np.ndarray) -> np.ndarray:
@@ -306,7 +311,8 @@ class StreamingRdsDecoder:
         Spans: rds.push, inside it rds.symbols (symbol recovery, pairing,
         differential decode) and rds.framing (frame sync and the station
         info); the counters rds.windows, rds.groups, rds.sync_losses and
-        rds.bits_corrected take this push's share of the decoder's own.
+        rds.bits_corrected take this push's share of the decoder's own,
+        rds.symbols_recovered the symbols its CDR emitted.
         """
         with scope("rds.push"):
             with scope("rds.symbols"):
@@ -325,6 +331,7 @@ class StreamingRdsDecoder:
                 for g in new:
                     update_info(self.info, g)
             self.groups.extend(new)
+        count("rds.symbols_recovered", len(symbols))
         count("rds.windows", self.windows - windows)
         count("rds.groups", len(new))
         count("rds.sync_losses", self.sync_losses - losses)
@@ -344,12 +351,13 @@ class MultiStreamingRds:
     The reference's live model is one station piped through one process
     (src/project.cpp:392-393); scaled to the framework's N-station batch
     (channel DP / wideband channelizer), live decode means N incremental
-    decoders fed from the batched soft output.  At 1187.5 bit/s per station
-    the host-side work is microseconds per block even at hundreds of
-    stations, so the decoders run as a plain loop over
-    `StreamingRdsDecoder`s (the reference's accelerator-side GF(2)
-    frame-sync matmul, sdr_tpu/rds/matrix.py syndromes_sliding_device, is
-    not ported yet); memory is O(K) decoder states, independent of stream length.
+    decoders fed from the batched soft output, run as a plain loop over
+    `StreamingRdsDecoder`s.  The host work is of the order of a
+    millisecond a station and 0.8 s push (CDR, pairing and frame sync in
+    NumPy and Python), so at hundreds of stations it is the step's
+    largest cost; the accelerator-side GF(2) frame-sync matmul
+    (rds/matrix.py syndromes_sliding_device) serves the offline decode
+    only.  Memory is O(K) decoder states, independent of stream length.
     """
 
     def __init__(self, sps: int, k: int, **kw):

@@ -124,7 +124,17 @@ def _rds_soft(splice_after: int | None = None):
 
 
 def _decode(soft, block=777):
+    """Push soft in blocks with tracing on; dec.returned counts the
+    symbols its CDR returned."""
     dec = StreamingRdsDecoder(16)
+    recover, dec.returned = dec._recover_symbols, 0
+
+    def counted(x):
+        out = recover(x)
+        dec.returned += len(out)
+        return out
+
+    dec._recover_symbols = counted
     groups = []
     logger.set_tracing(True)
     for i in range(0, len(soft), block):
@@ -140,6 +150,8 @@ def test_rds_counters_on_a_clean_stream():
     assert counters["rds.windows"] == dec.windows >= counters["rds.groups"]
     assert counters["rds.sync_losses"] == dec.sync_losses == 0
     assert counters["rds.bits_corrected"] == dec.bits_corrected
+    assert counters["rds.symbols_recovered"] == dec.returned == (
+        dec._sym_abs + len(dec._sym_buf)) > 16 * 104
     pushes = spans["rds.push"][1]
     assert spans["rds.symbols"][1] == spans["rds.framing"][1] == pushes
     assert spans["rds.push"][0] >= spans["rds.symbols"][0]
@@ -155,6 +167,10 @@ def test_rds_counters_at_a_seam_of_56_zero_bits():
     assert c1["rds.windows"] - c0["rds.windows"] >= 56
     assert c1["rds.groups"] == len(groups) == len(clean)
     assert c1["rds.bits_corrected"] == dec.bits_corrected
+    # 56 more bits: 112 more symbols
+    assert c1["rds.symbols_recovered"] == dec.returned
+    assert abs(c1["rds.symbols_recovered"] - c0["rds.symbols_recovered"]
+               - 112) <= 2
 
 
 def test_rds_counters_count_corrected_bits():
@@ -167,6 +183,7 @@ def test_rds_counters_count_corrected_bits():
     dec, _, (_, counters) = _decode(noisy)
     assert dec.bits_corrected > 0
     assert counters["rds.bits_corrected"] == dec.bits_corrected
+    assert counters["rds.symbols_recovered"] == dec.returned
 
 
 def _called_names(tree):
@@ -251,6 +268,9 @@ def test_stats_prints_the_span_table(stereo_capture, tmp_path, capsys,
     assert ("rds: " in err) == ("--rds" in flags)
     if "--rds" in flags:
         assert int(rows["rds.push"][0]) == steps
+        line = next(ln for ln in err.splitlines()
+                    if ln.endswith("us a symbol in rds.symbols"))
+        assert int(line.split()[1]) > 0
     assert logger.stage_scope("demod") is logger.stage_scope("x")
 
 
