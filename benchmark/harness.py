@@ -13,7 +13,8 @@ mix; both are data files found by name, and so is what they name:
                                     `lower(precision)` for the control
   benchmark/traffic/<traffic>.json  stations, blocks a step, open
                                     (`realtime`) or `closed` loop, whether
-                                    RDS is decoded, the buffer, the signal
+                                    RDS is decoded, the buffer, the signal,
+                                    and optionally `antenna` (below)
   benchmark/metrics/<metric>.py     `read(run)` of one per-layer metric
   benchmark/work/<config>.py        `step_work(stations, step_bytes)`
 
@@ -35,6 +36,25 @@ result line.  Spans (enqueue, gather, d2h, rds_push, wait_due) are the
 harness's own clock around its calls into the program; with `--trace 1`
 they are also `record_function` ranges in the torch.profiler trace of the
 window, from which the per-layer metrics and the breakdown are read.
+
+The antenna layout.  A traffic file with an `antenna` object puts all
+its stations on one antenna stream, as a wideband receiver takes it:
+  fs           the stream's rate, a whole multiple of the mode's RF rate
+  offsets_hz   each station's offset from the stream's centre (one a
+               station), each a whole number of turns over the buffer
+  level_db     [lo, hi]: each station's level, drawn from the seed
+  amplitude    the sum's share of u8 full scale
+Station s plays programme s mod P, synthesized at `fs`, from a seeded
+offset (a whole number of RF-rate samples); the sum is one (1, 2 n) u8
+row (synth.antenna_stream), a step its columns.  The system's
+`step_bytes(config, blocks_per_step, antenna=)` and `build(config,
+blocks_per_step, device, antenna=)` then count the stream's bytes a
+step; the reference's `build(config, k, precision=, device=, antenna=,
+indices=)` channelizes the stations `indices` (the checked ones; every
+one for the control) out of the stream steps it is fed.  A step is
+step_bytes / 2 / fs seconds and K station-seconds of `decode_rate`; RDS
+bits are counted in RF-rate samples.  Without `antenna` every module is
+called as before and the bytes are the same.
 """
 
 from __future__ import annotations
@@ -196,14 +216,16 @@ class Traffic:
     checked: list
     step_bytes: int
     step_s: float
-    offsets: np.ndarray | None = None   # programme pair of each row's start
+    offsets: np.ndarray | None = None   # start in its programme (RF rate)
     n_bits: int = 0               # RDS bits in a loop of the buffer
+    decim: int = 1                # stream samples an RF-rate sample
 
     def bit_spans(self, first: int, end: int) -> list:
         """Each station's stream bits [b0, b1) that stream steps [first,
-        end) carry, counted from its programme's first loop."""
-        n_pairs = self.buf.shape[1] // 2
-        half = self.step_bytes // 2
+        end) carry, counted from its programme's first loop (in RF-rate
+        samples: `offsets` counts them)."""
+        n_pairs = self.buf.shape[1] // 2 // self.decim
+        half = self.step_bytes // 2 // self.decim
         return [((first * half + int(o)) * self.n_bits // n_pairs,
                  (end * half + int(o)) * self.n_bits // n_pairs)
                 for o in self.offsets]
@@ -231,34 +253,95 @@ class Traffic:
         return self.stage
 
 
+def antenna_turns(antenna: dict, stations: int, n: int, fs: int) -> list:
+    """Each offset's whole turns over n stream samples at fs; raises where
+    the layout does not hold (module doc)."""
+    offs = antenna["offsets_hz"]
+    if len(offs) != stations:
+        raise ValueError(f"antenna: {len(offs)} offsets for {stations} "
+                         "stations")
+    turns = []
+    for f in offs:
+        if f != int(f) or int(f) * n % fs:
+            raise ValueError(
+                f"antenna: {f} Hz makes {f * n / fs} turns over the "
+                f"buffer's {n} samples at {fs}: a looped buffer would not "
+                "be one continuous broadcast")
+        turns.append(int(f) * n // fs)
+    return turns
+
+
 def make_traffic(cell: Cell, step_bytes: int, seed: int,
                  device) -> Traffic:
     """The cell's broadcasts from the seed: `programmes` distinct ones,
-    station s playing programme s mod P from a seeded offset."""
+    station s playing programme s mod P from a seeded offset; one row a
+    station, or one antenna stream of them all (module doc)."""
     t = cell.traffic
-    fs = MODES[cell.config["mode"]].rf_fs
+    rf_fs = MODES[cell.config["mode"]].rf_fs
+    ant, fs = t.get("antenna"), rf_fs
+    if ant is not None:
+        fs = int(ant["fs"])
+        if fs != ant["fs"] or fs % rf_fs:
+            raise ValueError(f"antenna: fs {ant['fs']} is no whole multiple "
+                             f"of the RF rate {rf_fs}")
     step_s = step_bytes / 2 / fs
     buf_steps = max(1, round(t["buffer_seconds"] / step_s))
     n_pairs = buf_steps * step_bytes // 2
     rng = np.random.default_rng(seed % 2 ** 64)
     gen = torch.Generator(device=device).manual_seed(seed % 2 ** 63)
-    progs = [synth.synthesize(n_pairs, fs, rng, t["signal"], gen, device)
+    k = t["stations"]
+    station_programme = [s % t["programmes"] for s in range(k)]
+    if ant is None:
+        progs, buf, offsets = station_rows(t, n_pairs, fs, station_programme,
+                                           rng, gen, device)
+    else:
+        progs, buf, offsets = antenna_row(t, n_pairs, fs, fs // rf_fs,
+                                          station_programme, rng, gen, device)
+    checked = draw_checked(rng, k, t["check_stations"])
+    return Traffic(buf, progs, station_programme, checked, step_bytes,
+                   step_s, offsets, n_pairs * synth.SYMBOL_RATE // (2 * fs),
+                   fs // rf_fs)
+
+
+def station_rows(t: dict, n: int, fs: int, station_programme, rng, gen,
+                 device):
+    """(programmes, (stations, 2 n) u8, offsets): a row a station, each
+    its programme's u8 from its offset (in pairs)."""
+    progs = [synth.synthesize(n, fs, rng, t["signal"], gen, device)
              for _ in range(t["programmes"])]
     src = [p.u8.cpu().numpy() for p in progs]
     for p in progs:
         p.u8 = None
-    k = t["stations"]
-    buf = np.empty((k, 2 * n_pairs), np.uint8)
-    station_programme = [s % len(progs) for s in range(k)]
-    offsets = 2 * rng.integers(0, n_pairs, k)
+    k = len(station_programme)
+    buf = np.empty((k, 2 * n), np.uint8)
+    offsets = 2 * rng.integers(0, n, k)
     for s in range(k):
         o, row = int(offsets[s]), src[station_programme[s]]
         buf[s, :row.size - o] = row[o:]
         buf[s, row.size - o:] = row[:o]
-    checked = draw_checked(rng, k, t["check_stations"])
-    return Traffic(buf, progs, station_programme, checked, step_bytes,
-                   step_s, offsets // 2,
-                   n_pairs * synth.SYMBOL_RATE // (2 * fs))
+    return progs, buf, offsets // 2
+
+
+def antenna_row(t: dict, n: int, fs: int, decim: int, station_programme,
+                rng, gen, device):
+    """(programmes, (1, 2 n) u8, offsets): the stations on one antenna
+    stream at fs (module doc), each from its offset (in RF-rate samples,
+    decim stream samples each)."""
+    ant = t["antenna"]
+    if n % decim:
+        raise ValueError(f"antenna: {n} samples a loop are no whole number "
+                         f"of RF-rate samples")
+    k = len(station_programme)
+    turns = antenna_turns(ant, k, n, fs)
+    made = [synth.baseband(n, fs, rng, t["signal"], device)
+            for _ in range(t["programmes"])]
+    offsets = rng.integers(0, n // decim, k)
+    gains = 10 ** (rng.uniform(*ant["level_db"], k) / 20)
+    sigma = 10 ** (rng.uniform(*t["signal"]["noise_db"]) / 20)
+    u8 = synth.antenna_stream([z for _, z in made], station_programme,
+                              offsets * decim, turns, gains, sigma,
+                              ant["amplitude"], gen)
+    return [p for p, _ in made], u8.cpu().numpy()[None], offsets
 
 
 class Control:
@@ -269,7 +352,8 @@ class Control:
         c = cell.config
         ref = cell.module("reference", c["reference"])
         self.ref = ref.build(c, stations, precision=ref.lower(c["precision"]),
-                             device=device)
+                             device=device,
+                             **antenna_args(cell, range(stations)))
 
     def step(self, u8: torch.Tensor) -> dict:
         return self.ref.process(u8)
@@ -370,17 +454,31 @@ def closed_window(system, traffic: Traffic, first: int, seconds: float,
     return steps, t0, drained[-1]
 
 
+def antenna_args(cell: Cell, indices=None) -> dict:
+    """The keywords a module of an antenna cell takes besides the usual
+    ones (module doc): the layout, and for the reference the `indices` of
+    its stations; none for a cell of one row a station."""
+    ant = cell.traffic.get("antenna")
+    if ant is None:
+        return {}
+    return {"antenna": ant} if indices is None else {
+        "antenna": ant, "indices": [int(i) for i in indices]}
+
+
 def reference_outputs(cell: Cell, traffic: Traffic, n_steps: int, keys,
                       device, chunk_bytes: int = 1 << 22) -> dict:
     """The reference over the checked stations' first n_steps stream
-    steps, a chunk of whole steps at a time; float64 on the host."""
+    steps, a chunk of whole steps at a time; float64 on the host.  It is
+    fed the checked stations' rows, or the antenna stream's steps."""
     c = cell.config
     ref = cell.module("reference", c["reference"]).build(
-        c, len(traffic.checked), device=device)
+        c, len(traffic.checked), device=device,
+        **antenna_args(cell, traffic.checked))
+    rows = None if "antenna" in cell.traffic else traffic.checked
     per = max(1, chunk_bytes // traffic.step_bytes)
     outs = {k: [] for k in keys}
     for j in range(0, n_steps, per):
-        u8 = np.concatenate([traffic.step(s, traffic.checked)
+        u8 = np.concatenate([traffic.step(s, rows)
                              for s in range(j, min(j + per, n_steps))],
                             axis=-1)
         o = ref.process(torch.from_numpy(u8).to(device))
@@ -482,10 +580,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     # the broadcasts before the program: the synthesis' own kernels run on
     # a device that nothing else has touched yet, and a fault the
     # program's set-up leaves pending surfaces at the fence below it
-    traffic = make_traffic(cell, system_mod.step_bytes(conf, bps), seed,
-                           device)
+    ant = antenna_args(cell)
+    traffic = make_traffic(cell, system_mod.step_bytes(conf, bps, **ant),
+                           seed, device)
     fence(device, "synthesis of the broadcasts")
-    prog = system_mod.build(conf, bps, device)
+    prog = system_mod.build(conf, bps, device, **ant)
     fence(device, "building the system")
     k = t["stations"]
     keys = list(conf["outputs"])

@@ -112,17 +112,37 @@ def test_group_stream_is_the_port_transmitter():
     assert np.array_equal(bits, want)
 
 
-def test_buffer_loops_without_a_seam():
+@pytest.mark.parametrize("layout", ["rows", "antenna"])
+def test_buffer_loops_without_a_seam(layout):
     """Two loops of a buffer through the reference: the discriminator's
     output at the seam is no larger than anywhere else, and the RDS
-    decoder syncs through it without a wrong group."""
+    decoder syncs through it without a wrong group.  `antenna`: the
+    programme is one of two stations on a 4.8 MS/s antenna stream
+    (synth.antenna_stream), channelized by the plain mixer and low-pass
+    before the reference."""
     from sdr_tpu_torch.rds.streaming import StreamingRdsDecoder
     n = 38400 * 44
-    p = synth.synthesize(n, 2_400_000, np.random.default_rng(8), SIG,
-                         torch.Generator().manual_seed(8), "cpu")
-    u8 = np.tile(p.u8.numpy(), 3)[None]
-    ref = RefReceiver(0, 1, rds=True)
-    out = streams(ref.process, u8, 153_600 // 2, ["mono", "rds_soft"])
+    if layout == "rows":
+        p = synth.synthesize(n, 2_400_000, np.random.default_rng(8), SIG,
+                             torch.Generator().manual_seed(8), "cpu")
+        u8, step, process = p.u8.numpy(), 153_600 // 2, RefReceiver(
+            0, 1, rds=True).process
+    else:
+        from benchmark import harness
+        fs, offs = 4_800_000, [-600_000, 400_000]
+        rng = np.random.default_rng(8)
+        made = [synth.baseband(2 * n, fs, rng, SIG, "cpu") for _ in offs]
+        p = made[0][0]
+        u8 = synth.antenna_stream(
+            [z for _, z in made], [0, 1], [0, 2 * 12345],
+            harness.antenna_turns({"offsets_hz": offs}, 2, 2 * n, fs),
+            [1.0, 0.7], 10 ** (-30 / 20), 0.9,
+            torch.Generator().manual_seed(8)).numpy()
+        wideband = harness._load(ROOT / "benchmark/tests/antenna_cell/"
+                                 "reference/wideband.py")
+        step, process = 153_600, wideband.RefWideband(
+            0, {"fs": fs, "offsets_hz": offs}, [0], rds=True).process
+    out = streams(process, np.tile(u8, 3)[None], step, ["mono", "rds_soft"])
     mono = out["mono"][0]
     seam = n // 50
     near = np.abs(mono[seam - 40:seam + 40]).max()

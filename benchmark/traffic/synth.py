@@ -17,6 +17,13 @@ Multiplex (ITU-R BS.450): m = a_mono (L+R)/2 + a_pilot cos(th)
   + a_stereo (L-R)/2 cos(2 th) + a_rds r(t) cos(3 th), th the pilot phase;
 FM with 75 kHz deviation; complex Gaussian noise of `noise_db` dB per
 component; u8 = round(128 + 128 * 0.9 * (I, Q) + dither).
+
+`synthesize` is `baseband` (the programme's clean complex baseband at any
+rate, before noise and rounding) and then `quantize`.  `antenna_stream`
+puts several programmes' basebands on one antenna stream: each station
+shifted in time, mixed to its offset by an oscillator of whole turns over
+the buffer and scaled by its level, summed one at a time, the sum scaled
+to its share of u8 full scale, noise added once, rounded once.
 """
 
 from __future__ import annotations
@@ -141,6 +148,38 @@ def synthesize(n: int, fs: int, rng: np.random.Generator, sig: dict,
                gen: torch.Generator, device) -> Programme:
     """One programme of n IQ pairs at fs (module doc), its parameters drawn
     from `rng` by the ranges in `sig`, its noise from `gen`."""
+    prog, z = baseband(n, fs, rng, sig, device)
+    sigma = 10 ** (_draw(rng, sig["noise_db"]) / 20.0)
+    prog.u8 = quantize(interleaved(z), sigma, sig["amplitude"], gen)
+    return prog
+
+
+def interleaved(z: torch.Tensor) -> torch.Tensor:
+    """(2n,) float64 I, Q, I, Q, ... of a complex128 stream (a copy)."""
+    return torch.view_as_real(z).reshape(-1).clone()
+
+
+def quantize(iq: torch.Tensor, sigma: float, amplitude: float,
+             gen: torch.Generator) -> torch.Tensor:
+    """u8 = round(128 + 128 amplitude (iq + noise) + dither), clamped:
+    complex Gaussian noise of sigma per component, and uniform dither of
+    one step, both from `gen`.  iq: interleaved float64, changed in
+    place."""
+    n2, dev = iq.shape[0], iq.device
+    iq += sigma * torch.randn(n2, generator=gen, dtype=torch.float64,
+                              device=dev)
+    iq = iq * (amplitude * 128.0) + 128.0
+    iq += torch.rand(n2, generator=gen, dtype=torch.float64,
+                     device=dev) - 0.5
+    return torch.clamp(torch.round(iq), 0, 255).to(torch.uint8)
+
+
+def baseband(n: int, fs: int, rng: np.random.Generator, sig: dict,
+             device) -> tuple[Programme, torch.Tensor]:
+    """A programme's clean complex baseband: n samples at fs of unit
+    magnitude (complex128), before noise and u8 rounding; every parameter
+    but the noise level drawn from `rng`, in `synthesize`'s order.  The
+    programme's `u8` is None."""
     i = torch.arange(n, device=device)
     two_pi = 2.0 * np.pi
     # n samples hold n/fs seconds; a tone of k/(n/fs) Hz has k whole cycles
@@ -199,15 +238,31 @@ def synthesize(n: int, fs: int, rng: np.random.Generator, sig: dict,
     cfo_k = int(round(_draw(rng, sig["cfo_hz"]) * seconds))
     turns = turns + _cycles(cfo_k % n, n, i)
     phase = two_pi * torch.remainder(turns, 1.0)
-    noise_db = _draw(rng, sig["noise_db"])
-    sigma = 10 ** (noise_db / 20.0)
-    iq = torch.empty(2 * n, dtype=torch.float64, device=device)
-    iq[0::2] = torch.cos(phase)
-    iq[1::2] = torch.sin(phase)
-    iq += sigma * torch.randn(2 * n, generator=gen, dtype=torch.float64,
-                              device=device)
-    iq = iq * (sig["amplitude"] * 128.0) + 128.0
-    iq += torch.rand(2 * n, generator=gen, dtype=torch.float64,
-                     device=device) - 0.5
-    u8 = torch.clamp(torch.round(iq), 0, 255).to(torch.uint8)
-    return Programme(pi=pi, ps=ps, groups=groups, u8=u8)
+    z = torch.complex(torch.cos(phase), torch.sin(phase))
+    return Programme(pi=pi, ps=ps, groups=groups, u8=None), z
+
+
+def antenna_stream(basebands: list, station_programme: list, shifts,
+                   turns, gains, sigma: float, amplitude: float,
+                   gen: torch.Generator) -> torch.Tensor:
+    """One antenna stream, (2n,) u8 interleaved, of K stations: station s
+    is programme `station_programme[s]`'s baseband (complex128, n samples)
+    started `shifts[s]` samples in (it loops), mixed up by `turns[s]` whole
+    turns over the n samples (exact: integer sample counts) and scaled by
+    `gains[s]`.  The sum is scaled to a peak of one on I and Q, then to
+    `amplitude` of u8 full scale by `quantize`, with noise of sigma."""
+    n = basebands[0].shape[0]
+    dev = basebands[0].device
+    i = torch.arange(n, device=dev)
+    total = torch.zeros(n, dtype=torch.complex128, device=dev)
+    for s, p in enumerate(station_programme):
+        z = torch.roll(basebands[p], -int(shifts[s]))
+        z *= torch.polar(torch.full((), float(gains[s]), dtype=torch.float64,
+                                    device=dev),
+                         2.0 * np.pi * _cycles(int(turns[s]) % n, n, i))
+        total += z
+        del z               # freed before the next station's copy
+    iq = interleaved(total)
+    del total
+    iq /= iq.abs().max()
+    return quantize(iq, sigma, amplitude, gen)
