@@ -346,6 +346,10 @@ def _print_stats(launches0: int) -> None:
               + f", {counters.get('rds.sync_losses', 0)} sync losses, "
               f"{counters.get('rds.bits_corrected', 0)} bits corrected",
               file=sys.stderr)
+        s = counters.get("rds.windows_skipped", 0)
+        print(f"rds: {s} windows skipped by frame sync's walk"
+              + (f" ({100.0 * s / w:.1f}% of windows)" if w else ""),
+              file=sys.stderr)
         n = counters.get("rds.symbols_recovered", 0)
         t = spans.get("rds.symbols", (0.0, 0))[0]
         print(f"rds: {n} symbols recovered"

@@ -87,7 +87,7 @@ NAMES = (
     "cli.read", "cli.drain",
     # counters (rds/streaming.py), added once a push
     "rds.windows", "rds.groups", "rds.sync_losses", "rds.bits_corrected",
-    "rds.symbols_recovered",
+    "rds.symbols_recovered", "rds.windows_skipped",
 )
 
 _profiler_enabled = torch.autograd._profiler_enabled

@@ -26,7 +26,9 @@ state across blocks:
   * frame sync — a bounded bit window (search pointer onward) carries
     over, with the same locked-tracking/brute-force-re-search state machine
     as rds/framing.py `_track`, including optional burst correction at
-    locked positions; 57 kHz polarity is resolved from whichever inversion
+    locked positions; the syndromes of every window come from one pass over
+    the bits, and the search steps from one start that can hit to the
+    next; 57 kHz polarity is resolved from whichever inversion
     syncs first, then pinned — but UNPINNED again if the searcher advances
     `polarity_repin_bits` past the last lock without a hit (a deep fade can
     genuinely re-acquire the squared carrier at the opposite polarity).
@@ -39,6 +41,7 @@ across slip points (tested in tests/test_rds_streaming.py).
 
 from __future__ import annotations
 
+import bisect
 import math
 
 import numpy as np
@@ -46,7 +49,53 @@ import numpy as np
 from sdr_tpu_torch.io.logger import count
 from sdr_tpu_torch.io.logger import stage_scope as scope
 from sdr_tpu_torch.rds.app import StationInfo, update_info
-from sdr_tpu_torch.rds.framing import Group, _make_group, correct_group
+from sdr_tpu_torch.rds.framing import Group, correct_group
+from sdr_tpu_torch.rds.matrix import H, SYNDROMES
+
+
+def _syndrome_tables():
+    """Frame sync's syndromes.  A 26-bit window is packed into an int (its
+    first bit the MSB) by one convolution with the powers of two, _PACK.
+    Its syndrome, linear in the bits, is the XOR of its high and low 13
+    bits' syndromes, from two 8,192-entry tables; under the other polarity
+    (every bit inverted) it is XORed with the syndrome of 26 ones, flip[1].
+    The last table maps a syndrome to the offsets it carries: bits 0-3 A,
+    B, C or C', D under polarity 0, bits 4-7 the same under polarity 1."""
+    unit = (H.astype(np.int64) << np.arange(9, -1, -1)).sum(1)[::-1]
+    low13 = (np.arange(1 << 13)[:, None] >> np.arange(13)) & 1
+    hi, lo = (np.bitwise_xor.reduce(low13 * u, axis=1).astype(np.int16)
+              for u in (unit[13:], unit[:13]))
+    flip = (0, int(np.bitwise_xor.reduce(unit)))
+    block = np.zeros(1024, np.uint8)
+    for k, f in enumerate(flip):
+        for slot, names in enumerate((("A",), ("B",), ("C", "C'"), ("D",))):
+            for name in names:
+                block[SYNDROMES[name] ^ f] |= 1 << (4 * k + slot)
+    return hi, lo, flip, block
+
+
+_PACK = 1 << np.arange(26, dtype=np.int64)
+_SYN_HI, _SYN_LO, _FLIP, _BLOCK = _syndrome_tables()
+_POLARITY_BIT = (0x01, 0x10)   # of polarity 0, 1 in a start's flags
+
+
+def _sync_candidates(bits: np.ndarray):
+    """One pass over a bit buffer of at least 104 bits: the starts at which
+    the 104-bit window holds blocks A, B, C or C', D without error under
+    some polarity (the test of the reference's `_try_group`).  Returns
+    lists, one item a start: the start, its polarity flags
+    (`_POLARITY_BIT`), its four info words under polarity 0 (the packed
+    windows' top 16 bits) and its third block's syndrome."""
+    w = np.convolve(bits, _PACK, "valid")
+    block = _BLOCK[_SYN_HI[w >> 13] ^ _SYN_LO[w & 0x1FFF]]
+    n = len(block) - 78
+    flags = (block[:n] & (block[26:26 + n] >> 1) & (block[52:52 + n] >> 2)
+             & (block[78:] >> 3) & 0x11)
+    starts = np.flatnonzero(flags)
+    words = w[starts[:, None] + np.arange(0, 104, 26)]
+    third = _SYN_HI[words[:, 2] >> 13] ^ _SYN_LO[words[:, 2] & 0x1FFF]
+    return (starts.tolist(), flags[starts].tolist(),
+            (words >> 10).tolist(), third.tolist())
 
 
 class StreamingRdsDecoder:
@@ -112,6 +161,7 @@ class StreamingRdsDecoder:
         self.groups: list[Group] = []
         self.bits_corrected = 0
         self.windows = 0             # 104-bit windows frame sync tested
+        self.windows_skipped = 0     # of them, passed over by the walk
         self.sync_losses = 0         # locks lost at the expected position
 
     @property
@@ -240,45 +290,71 @@ class StreamingRdsDecoder:
         return (first > second).astype(np.uint8)  # HL = 1, LH = 0
 
     # --------------------------------------------------------------- framing
-    def _try_group(self, window104: np.ndarray) -> Group | None:
-        """Exact four-block sync test at the window start; resolves and pins
-        the 57 kHz polarity on first success."""
-        from sdr_tpu_torch.rds.matrix import SYNDROMES, syndrome
-        pols = ((self.polarity,) if self.polarity is not None else (0, 1))
-        for pol in pols:
-            w = window104 ^ pol
-            s = [syndrome(w[q:q + 26]) for q in (0, 26, 52, 78)]
-            if (s[0] == SYNDROMES["A"] and s[1] == SYNDROMES["B"]
-                    and s[2] in (SYNDROMES["C"], SYNDROMES["C'"])
-                    and s[3] == SYNDROMES["D"]):
-                self.polarity = pol
-                g = _make_group(w, 0, version_b=(s[2] == SYNDROMES["C'"]))
-                return Group(blocks=g.blocks, version_b=g.version_b,
-                             bit_offset=self._p)
-        return None
-
     def _advance_sync(self) -> list[Group]:
+        """Frame sync from the search pointer to the buffer's last window.
+
+        The state machine is the reference's loop, which tests the 104-bit
+        windows one start at a time, but every window's four-block test is
+        read from one pass over the buffer (`_sync_candidates`), and the
+        loop's body runs only at the starts where something can happen: a
+        locked decoder's expected start; while searching, the next exact
+        group under the polarities in play, the start after which the repin
+        rule unpins the polarity, and the last window.  The starts passed
+        over count in `windows` and in `windows_skipped`.
+        """
         new: list[Group] = []
-        end = self._bit_base + len(self._bits)
-        while self._p + 104 <= end:
+        base, bits = self._bit_base, self._bits
+        last = base + len(bits) - 104
+        if self._p <= last:
+            starts, flags, words, third = _sync_candidates(bits)
+            index = {q: i for i, q in enumerate(starts)}
+        while self._p <= last:
+            p, pol = self._p, self.polarity
+            if self._locked_at < 0:
+                # searching (a locked decoder's pointer is at its expected
+                # start): pass over the starts where nothing can happen
+                stop = last
+                if pol is not None:
+                    # the start whose miss the repin rule follows by unpinning
+                    stop = min(stop, max(p, max(self._last_hit, 0)
+                                         + self.polarity_repin_bits))
+                mask = 0x11 if pol is None else _POLARITY_BIT[pol]
+                for i in range(bisect.bisect_left(starts, p - base),
+                               len(starts)):
+                    if base + starts[i] >= stop:
+                        break
+                    if flags[i] & mask:
+                        stop = base + starts[i]
+                        break
+                self.windows += stop - p
+                self.windows_skipped += stop - p
+                self._p = p = stop
             self.windows += 1
-            lo = self._p - self._bit_base
-            window = self._bits[lo:lo + 104]
-            hit = self._try_group(window)
+            q = p - base
+            hit = None
+            i = index.get(q)
+            # a start is exact under one polarity at most: its first
+            # block's syndrome cannot be A both as it is and XOR _FLIP[1]
+            k = None if i is None else (0 if flags[i] & 0x01 else 1)
+            if k is not None and pol in (None, k):
+                self.polarity = k
+                hit = Group(blocks=tuple(x ^ (0xFFFF * k) for x in words[i]),
+                            version_b=third[i] ^ _FLIP[k] == SYNDROMES["C'"],
+                            bit_offset=p)
             at_expected = (self._locked_at >= 0
-                           and self._p == self._locked_at + 104)
+                           and p == self._locked_at + 104)
             if hit is None and at_expected and self.correct_bursts and \
                     self.polarity is not None:
-                g = correct_group(window ^ self.polarity, 0)
+                g = correct_group(bits[q:q + 104] ^ self.polarity, 0)
                 if g is not None:
                     hit = Group(blocks=g.blocks, version_b=g.version_b,
-                                bit_offset=self._p,
+                                bit_offset=p,
                                 bits_corrected=g.bits_corrected)
                     self.bits_corrected += g.bits_corrected
             if hit is not None:
                 new.append(hit)
-                self._locked_at = self._p
-                self._last_hit = self._p
+                self._locked_at = p
+                self._last_hit = p
                 self._p += 104
             else:
                 if at_expected:
@@ -310,9 +386,10 @@ class StreamingRdsDecoder:
         Updates self.info incrementally (PI/PS/RT live as groups arrive).
         Spans: rds.push, inside it rds.symbols (symbol recovery, pairing,
         differential decode) and rds.framing (frame sync and the station
-        info); the counters rds.windows, rds.groups, rds.sync_losses and
-        rds.bits_corrected take this push's share of the decoder's own,
-        rds.symbols_recovered the symbols its CDR emitted.
+        info); the counters rds.windows, rds.windows_skipped, rds.groups,
+        rds.sync_losses and rds.bits_corrected take this push's share of
+        the decoder's own, rds.symbols_recovered the symbols its CDR
+        emitted.
         """
         with scope("rds.push"):
             with scope("rds.symbols"):
@@ -324,8 +401,9 @@ class StreamingRdsDecoder:
                     bits = (diff_bits ^ prevs).astype(np.uint8)
                     self._prev_bit = int(diff_bits[-1])
                     self._bits = np.concatenate([self._bits, bits])
-            windows, losses, fixed = (self.windows, self.sync_losses,
-                                      self.bits_corrected)
+            windows, skipped, losses, fixed = (
+                self.windows, self.windows_skipped, self.sync_losses,
+                self.bits_corrected)
             with scope("rds.framing"):
                 new = self._advance_sync()
                 for g in new:
@@ -333,6 +411,7 @@ class StreamingRdsDecoder:
             self.groups.extend(new)
         count("rds.symbols_recovered", len(symbols))
         count("rds.windows", self.windows - windows)
+        count("rds.windows_skipped", self.windows_skipped - skipped)
         count("rds.groups", len(new))
         count("rds.sync_losses", self.sync_losses - losses)
         count("rds.bits_corrected", self.bits_corrected - fixed)
@@ -352,10 +431,10 @@ class MultiStreamingRds:
     (src/project.cpp:392-393); scaled to the framework's N-station batch
     (channel DP / wideband channelizer), live decode means N incremental
     decoders fed from the batched soft output, run as a plain loop over
-    `StreamingRdsDecoder`s.  The host work is of the order of a
-    millisecond a station and 0.8 s push (CDR, pairing and frame sync in
-    NumPy and Python), so at hundreds of stations it is the step's
-    largest cost; the accelerator-side GF(2) frame-sync matmul
+    `StreamingRdsDecoder`s.  The host work is about 0.7 ms a station and
+    0.8 s push on an H100 machine's host (CDR and pairing about half of
+    it, frame sync a third), so at hundreds of stations it is one of the
+    step's largest costs; the accelerator-side GF(2) frame-sync matmul
     (rds/matrix.py syndromes_sliding_device) serves the offline decode
     only.  Memory is O(K) decoder states, independent of stream length.
     """

@@ -125,9 +125,11 @@ def _rds_soft(splice_after: int | None = None):
 
 def _decode(soft, block=777):
     """Push soft in blocks with tracing on; dec.returned counts the
-    symbols its CDR returned."""
+    symbols its CDR returned, dec.skipped_synced the windows frame sync's
+    walk passed over after the push of the first group."""
     dec = StreamingRdsDecoder(16)
     recover, dec.returned = dec._recover_symbols, 0
+    dec.skipped_synced = 0
 
     def counted(x):
         out = recover(x)
@@ -138,7 +140,10 @@ def _decode(soft, block=777):
     groups = []
     logger.set_tracing(True)
     for i in range(0, len(soft), block):
+        synced, skipped = bool(dec.groups), dec.windows_skipped
         groups += dec.push(soft[i:i + block])
+        if synced:
+            dec.skipped_synced += dec.windows_skipped - skipped
     logger.set_tracing(False)
     return dec, groups, logger.totals()
 
@@ -152,6 +157,10 @@ def test_rds_counters_on_a_clean_stream():
     assert counters["rds.bits_corrected"] == dec.bits_corrected
     assert counters["rds.symbols_recovered"] == dec.returned == (
         dec._sym_abs + len(dec._sym_buf)) > 16 * 104
+    # locked on a seamless stream, the walk steps from group to group
+    assert counters.get("rds.windows_skipped", 0) == dec.windows_skipped \
+        <= counters["rds.windows"]
+    assert dec.skipped_synced == 0 and dec._locked_at >= 0
     pushes = spans["rds.push"][1]
     assert spans["rds.symbols"][1] == spans["rds.framing"][1] == pushes
     assert spans["rds.push"][0] >= spans["rds.symbols"][0]
@@ -165,6 +174,9 @@ def test_rds_counters_at_a_seam_of_56_zero_bits():
     dec, groups, (_, c1) = _decode(_rds_soft(splice_after=6))
     assert c1["rds.sync_losses"] == dec.sync_losses == 1
     assert c1["rds.windows"] - c0["rds.windows"] >= 56
+    # the search after the seam passes over the windows that cannot hit
+    assert 0 < dec.skipped_synced <= c1["rds.windows_skipped"] == (
+        dec.windows_skipped) <= c1["rds.windows"]
     assert c1["rds.groups"] == len(groups) == len(clean)
     assert c1["rds.bits_corrected"] == dec.bits_corrected
     # 56 more bits: 112 more symbols
@@ -218,7 +230,7 @@ def test_every_span_and_counter_is_declared():
     assert {"receiver.run", "receiver.h2d", "receiver.step", "rds.push",
             "rds.symbols", "rds.framing", "cli.read", "cli.drain",
             "rds.windows", "rds.groups", "rds.sync_losses",
-            "rds.bits_corrected"} <= names
+            "rds.bits_corrected", "rds.windows_skipped"} <= names
     assert prefixes == {"pll_"}
     for impl in ("scan", "pallas", "chunked", "pallas_chunked", "ff"):
         assert f"pll_{impl}" in logger.NAMES
@@ -271,6 +283,15 @@ def test_stats_prints_the_span_table(stereo_capture, tmp_path, capsys,
         line = next(ln for ln in err.splitlines()
                     if ln.endswith("us a symbol in rds.symbols"))
         assert int(line.split()[1]) > 0
+        windows = int(next(ln for ln in err.splitlines()
+                           if ln.startswith("rds: ")).split()[1])
+        line = next(ln for ln in err.splitlines()
+                    if " windows skipped by frame sync's walk" in ln)
+        skipped = int(line.split()[1])
+        assert 0 <= skipped <= windows
+        if windows:
+            assert line.endswith(f"({100.0 * skipped / windows:.1f}% of "
+                                 "windows)")
     assert logger.stage_scope("demod") is logger.stage_scope("x")
 
 
