@@ -210,36 +210,34 @@ def main(argv: list[str] | None = None) -> int:
                 if psd_anim is not None:
                     psd_anim.push(out["fm_demod"])
 
-    def to_device(raw):
-        with scope("receiver.h2d"):
-            return torch.tensor(raw).to(device)
-
     n_in = 0
-    pending = None  # host drain of step k overlaps device work of step k+1
+
+    def blocks():
+        nonlocal n_in
+        it = iter(src)
+        while True:
+            # the wait for stdin, the file or the native reader's ring
+            with scope("cli.read"):
+                raw = next(it, None)
+            if raw is None:
+                break
+            if args.trace_iq is not None and n_in == 0:
+                _trace_iq(args.trace_iq, raw, rx)
+            n_in += len(raw)
+            yield raw
+        # EOF flush: the partial final block at the finest aligned size
+        tail = src.tail()
+        tail_n = (len(tail) // rx.block_align_u8()) * rx.block_align_u8()
+        if tail_n:
+            n_in += tail_n
+            yield tail[:tail_n]
+
     t0 = time.perf_counter()
     src, reader = _block_source(fin, block_size)
     sink, writer = _audio_sink(fout)
     try:
         with _profiling(args.profile, device), _stats(args.stats) as launches0:
-            for raw in _read(src):
-                if args.trace_iq is not None and n_in == 0:
-                    _trace_iq(args.trace_iq, raw, rx)
-                state, out = rx.step(state, to_device(raw))
-                if pending is not None:
-                    drain(pending)
-                pending = out
-                n_in += len(raw)
-            # EOF flush: the partial final block at the finest aligned size
-            tail = src.tail()
-            tail_n = (len(tail) // rx.block_align_u8()) * rx.block_align_u8()
-            if tail_n:
-                state, out = rx.step(state, to_device(tail[:tail_n]))
-                if pending is not None:
-                    drain(pending)
-                pending = out
-                n_in += tail_n
-            if pending is not None:
-                drain(pending)
+            state = _pipeline(rx, state, blocks(), drain)
     finally:
         if reader == "native":
             src.close()
@@ -288,17 +286,22 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _read(src):
-    """The blocks of `src`, each read inside the span cli.read (the wait
-    for stdin, the file or the native reader's ring)."""
-    from sdr_tpu_torch.io.logger import stage_scope as scope
-    it = iter(src)
-    while True:
-        with scope("cli.read"):
-            raw = next(it, None)
-        if raw is None:
-            return
-        yield raw
+def _pipeline(rx, state, blocks, drain):
+    """Step the host blocks in turn: copy a block onto the receiver's
+    device (io/stream.py to_device), issue its step, then drain the step
+    before it, so that the host's drain of step k overlaps the device's
+    work on step k+1; the last step drains at the end.  Returns the final
+    state."""
+    from sdr_tpu_torch.io.stream import to_device
+    pending = None
+    for raw in blocks:
+        state, out = rx.step(state, to_device(raw, rx.device))
+        if pending is not None:
+            drain(pending)
+        pending = out
+    if pending is not None:
+        drain(pending)
+    return state
 
 
 @contextlib.contextmanager
@@ -558,19 +561,14 @@ def _run_stations(args, cfg, stereo: bool, rds: bool,
                           f"RT={info.radio_text.rstrip()!r} "
                           f"({info.groups_seen} groups)", file=sys.stderr)
 
-    pending = None  # host slicing and drain overlap the device's step
-    with _profiling(args.profile, device), _stats(args.stats) as launches0:
+    def batches():
         for off in range(0, n - bs + 1, bs):
             with scope("cli.read"):
                 batch = np.stack([m[off:off + bs] for m in maps])
-            with scope("receiver.h2d"):
-                blk = torch.from_numpy(batch).to(device)
-            state, out = rx.step(state, blk)
-            if pending is not None:
-                drain(pending)
-            pending = out
-        if pending is not None:
-            drain(pending)
+            yield batch
+
+    with _profiling(args.profile, device), _stats(args.stats) as launches0:
+        _pipeline(rx, state, batches(), drain)
     if args.stats:
         _print_stats(launches0)
 

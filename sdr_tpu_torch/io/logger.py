@@ -71,7 +71,8 @@ class PsdAnimWriter:
 # (a range is not a kernel) and the tests (every `stage_scope` and `count`
 # of the package names one of these).
 NAMES = (
-    # the receiver's host side (models/receiver.py)
+    # the receiver's host side (models/receiver.py; receiver.h2d is
+    # io/stream.py's to_device, every entry path's copy onto the device)
     "receiver.run", "receiver.h2d", "receiver.step",
     # its stages, inside receiver.step
     "rf_frontend", "demod", "mono_path", "if_filters", "ifbank_fused",
@@ -145,9 +146,6 @@ def stage_scope(name: str):
     if not (_tracing or _profiler_enabled()):
         return _NULL
     return _Span(name)
-
-
-named_scope = stage_scope  # the receivers' earlier name for the span
 
 
 def count(name: str, n: int) -> None:

@@ -7,7 +7,8 @@ Port of sdr_tpu/io/stream.py.  Reference semantics:
    interleaved R,L for stereo (reference: src/project.cpp:183-193).
 
 The device functions run on whatever device their tensor lives on; the
-host readers hand out numpy blocks for the caller to move.
+host readers hand out numpy blocks, and `to_device` is the one way every
+entry point moves a host block onto the device.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import BinaryIO, Iterator
 
 import numpy as np
 import torch
+
+from sdr_tpu_torch.io.logger import stage_scope
 
 
 def u8_to_f32(raw: torch.Tensor) -> torch.Tensor:
@@ -46,6 +49,27 @@ def interleave_stereo_s16(left: torch.Tensor,
     r = pack_s16(right)
     l = pack_s16(left)
     return torch.stack([r, l], dim=-1).reshape(*r.shape[:-1], 2 * r.shape[-1])
+
+
+def host_tensor(x) -> torch.Tensor:
+    """A host block as a tensor: a tensor as it is; a writable numpy array
+    as a CPU tensor on the array's memory, with no copy; a read-only one
+    (np.frombuffer, a read-only memmap) copied once, because torch does
+    not take read-only memory."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    if not x.flags.writeable:
+        x = np.array(x)
+    return torch.from_numpy(x)
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host block (numpy array or tensor) on `device`, contiguous, inside
+    the span receiver.h2d: the program's one copy of its input onto the
+    device.  A block already there is returned as it is."""
+    with stage_scope("receiver.h2d"):
+        return host_tensor(x).to(device).contiguous()
 
 
 def read_u8_blocks(stream: BinaryIO, block_size: int) -> Iterator[np.ndarray]:

@@ -46,7 +46,7 @@ import torch
 
 from sdr_tpu_torch.config import ModeConfig, get_mode
 from sdr_tpu_torch.io.logger import stage_scope as scope
-from sdr_tpu_torch.io.stream import decode_u8_iq
+from sdr_tpu_torch.io.stream import decode_u8_iq, host_tensor, to_device
 from sdr_tpu_torch.models.state import (FrontEndState, MonoState, RdsState,
                                         ReceiverState, StereoState)
 from sdr_tpu_torch.ops import firdes
@@ -747,15 +747,13 @@ class Receiver:
         effect: the steps run eagerly.
         """
         with scope("receiver.run"):
-            iq_u8 = torch.as_tensor(iq_u8)
+            iq_u8 = host_tensor(iq_u8)
             *lead, n = iq_u8.shape
             if state is None:
                 state = self.init_state(tuple(lead))
             chunks: dict[str, list[torch.Tensor]] = {}
             for off, size in self.spans(n, blocks_per_step):
-                with scope("receiver.h2d"):
-                    blk = iq_u8[..., off:off + size].to(
-                        self.device).contiguous()
+                blk = to_device(iq_u8[..., off:off + size], self.device)
                 state, out = self.step(state, blk)
                 for k, v in out.items():
                     chunks.setdefault(k, []).append(v)

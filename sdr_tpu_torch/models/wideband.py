@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.io.logger import stage_scope as scope
-from sdr_tpu_torch.io.stream import decode_u8_iq
+from sdr_tpu_torch.io.stream import decode_u8_iq, to_device
 from sdr_tpu_torch.models.receiver import Receiver
 from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
 
@@ -97,7 +97,7 @@ class WidebandReceiver:
         nsteps = wide.shape[-1] // bw
         if nsteps == 0:
             raise ValueError(f"capture shorter than one block ({bw})")
-        steps = _to_device(wide[: nsteps * bw], self.device).reshape(
+        steps = to_device(wide[: nsteps * bw], self.device).reshape(
             nsteps, bw)
         if state is None:
             state = self.init_state()
@@ -128,7 +128,7 @@ class WidebandReceiver:
                 steps, rest = flat[:chunk], flat[chunk:]
                 buf, have = [rest], len(rest)
                 state, outputs = self._steps(
-                    state, _to_device(steps, self.device).reshape(
+                    state, to_device(steps, self.device).reshape(
                         scan_steps, bw))
                 yield outputs, state
         # tail: whole blocks that don't fill a chunk, one at a time
@@ -136,12 +136,5 @@ class WidebandReceiver:
             buf[0] if buf else np.zeros(0))
         for b in range(len(flat) // bw):
             state, out = self.step(
-                state, _to_device(flat[b * bw:(b + 1) * bw], self.device))
+                state, to_device(flat[b * bw:(b + 1) * bw], self.device))
             yield out, state
-
-
-def _to_device(x, device: torch.device) -> torch.Tensor:
-    """A numpy array (read-only ones too) or tensor, on `device`."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.tensor(np.asarray(x)).to(device)

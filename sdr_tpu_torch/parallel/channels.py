@@ -12,19 +12,11 @@ steps of the devices interleave, so that several cards work at once.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from sdr_tpu_torch.io.stream import host_tensor, to_device
 from sdr_tpu_torch.models.receiver import Receiver, concat_steps
 from sdr_tpu_torch.parallel.mesh import Mesh, gather, receivers, tree_map
-
-
-def as_tensor(x) -> torch.Tensor:
-    """A tensor as it is; a numpy array (read-only ones too) as a CPU
-    tensor."""
-    if isinstance(x, torch.Tensor):
-        return x
-    return torch.from_numpy(np.array(x))
 
 
 def sharded_run(rx: Receiver, iq_u8, mesh: Mesh, *, axis: str = "channels",
@@ -45,11 +37,12 @@ def sharded_run(rx: Receiver, iq_u8, mesh: Mesh, *, axis: str = "channels",
         if iq_u8.n_global % n_dev:
             raise ValueError(f"global batch of {iq_u8.n_global} channels "
                              f"not divisible by {n_dev}")
-        return _run_shards(rx, as_tensor(iq_u8.local), mesh, blocks_per_step)
+        return _run_shards(rx, host_tensor(iq_u8.local), mesh,
+                           blocks_per_step)
     if mesh.process_count > 1:
         raise ValueError("a mesh across processes runs the batch of "
                          "distributed.make_global_batch")
-    iq = as_tensor(iq_u8)
+    iq = host_tensor(iq_u8)
     n_ch = iq.shape[0]
     n_pad = (-n_ch) % n_dev
     if n_pad:
@@ -81,7 +74,7 @@ def _run_shards(rx: Receiver, iq: torch.Tensor, mesh: Mesh,
     for off, size in rx.spans(iq.shape[-1], blocks_per_step):
         for run in runs:
             r, x, state, chunks = run
-            blk = x[..., off:off + size].to(r.device).contiguous()
+            blk = to_device(x[..., off:off + size], r.device)
             run[2], out = r.step(state, blk)
             for k, v in out.items():
                 chunks.setdefault(k, []).append(v)

@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from sdr_tpu_torch.config import ModeConfig
+from sdr_tpu_torch.io.stream import host_tensor, to_device
 from sdr_tpu_torch.models.receiver import Receiver
-from sdr_tpu_torch.parallel.channels import as_tensor
 from sdr_tpu_torch.parallel.mesh import Mesh, gather, receivers, tree_map
 
 
@@ -77,7 +77,7 @@ def _pad_for_mesh(iq_u8, n_dev: int, align: int
     right-pad with u8 value 128 (decodes to 0.0) so every shard receives
     an equal aligned chunk.  Returns (padded tensor on the input's
     device, n_valid); callers trim outputs back to the serial length."""
-    arr = as_tensor(iq_u8)
+    arr = host_tensor(iq_u8)
     if arr.dim() != 1:
         raise ValueError(f"time sharding takes one station's (n,) stream, "
                          f"not {tuple(arr.shape)}")
@@ -110,7 +110,7 @@ def _run_extended(rx: Receiver, iq_u8, mesh: Mesh, axis: str, align: int,
     if chunk_u8 < halo_u8:
         raise ValueError(f"per-shard chunk {chunk_u8} u8 shorter than the "
                          f"halo {halo_u8}")
-    chunks = [iq[d * chunk_u8:(d + 1) * chunk_u8].to(dev)
+    chunks = [to_device(iq[d * chunk_u8:(d + 1) * chunk_u8], dev)
               for d, dev in enumerate(mesh.devices)]
     rxs = receivers(rx, mesh)
     warm, main, order = [], [], []

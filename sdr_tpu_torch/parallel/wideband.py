@@ -24,9 +24,9 @@ from __future__ import annotations
 
 import torch
 
+from sdr_tpu_torch.io.stream import host_tensor, to_device
 from sdr_tpu_torch.models.receiver import Receiver, concat_steps
 from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
-from sdr_tpu_torch.parallel.channels import as_tensor
 from sdr_tpu_torch.parallel.mesh import (Mesh, canonical, gather, receivers,
                                          tree_map)
 
@@ -68,7 +68,7 @@ def sharded_wideband_run(chan: WidebandChannelizer, rx: Receiver,
     nsteps = wide.shape[-1] // bw
     if nsteps == 0:
         raise ValueError(f"capture shorter than one wideband block ({bw})")
-    steps = as_tensor(wide[: nsteps * bw]).reshape(nsteps, bw)
+    steps = host_tensor(wide[: nsteps * bw]).reshape(nsteps, bw)
     rxs = receivers(rx, mesh)
     runs, order = [], []
     for dev, shards in mesh.groups().items():
@@ -83,7 +83,7 @@ def sharded_wideband_run(chan: WidebandChannelizer, rx: Receiver,
                 compute_dtype=_dtype_name(chan.compute_dtype),
                 out_dtype=_dtype_name(pl.out_dtype), device=dev)
         order += rows
-        runs.append([sub, rxs[dev], steps.to(dev), sub.init_state(),
+        runs.append([sub, rxs[dev], to_device(steps, dev), sub.init_state(),
                      rxs[dev].init_state((len(rows),)), {}])
     for s in range(nsteps):
         for run in runs:

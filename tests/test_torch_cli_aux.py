@@ -213,10 +213,10 @@ def test_named_scope_opens_a_range_only_under_the_profiler():
     """The receivers' ranges cost a null context with no profiler
     running, and are record_function ranges while one records."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from sdr_tpu_torch.io.logger import named_scope
-    assert not isinstance(named_scope("demod"), record_function)
+    from sdr_tpu_torch.io.logger import stage_scope
+    assert not isinstance(stage_scope("demod"), record_function)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with named_scope("demod"):
+        with stage_scope("demod"):
             torch.zeros(4).sum()
     assert "demod" in {e.key for e in prof.key_averages()}
 

@@ -1,12 +1,14 @@
 """The port's spans and counters (sdr_tpu_torch/io/logger.py): off, a span
 is one shared null context that records nothing; on (a profiler records,
 or set_tracing), a record_function range and a total and count per name.
-The receiver's and the RDS decoder's spans and counters, the CLI's
---stats table, the names' declaration, and tools/trace_gaps.py."""
+The receiver's and the RDS decoder's spans and counters, every entry
+path's copy onto the device (io/stream.py to_device and host_tensor), the
+CLI's --stats table, the names' declaration, and tools/trace_gaps.py."""
 
 import ast
 import json
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -18,7 +20,12 @@ from sdr_tpu_torch import cli as tcli
 from sdr_tpu_torch import tx as ttx
 from sdr_tpu_torch.config import MODES
 from sdr_tpu_torch.io import logger
+from sdr_tpu_torch.io.stream import host_tensor, to_device
 from sdr_tpu_torch.models.receiver import Receiver
+from sdr_tpu_torch.models.wideband import WidebandReceiver
+from sdr_tpu_torch.ops.channelizer import WidebandChannelizer
+from sdr_tpu_torch.parallel.channels import sharded_run
+from sdr_tpu_torch.parallel.mesh import make_mesh
 from sdr_tpu_torch.rds import tx as rds_tx
 from sdr_tpu_torch.rds.streaming import StreamingRdsDecoder
 
@@ -111,6 +118,118 @@ def test_receiver_run_spans_one_per_call():
             assert torch.equal(a[k], b[k]), k
 
 
+def _noise_u8(n: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+
+
+def _wideband():
+    """A two-station mono WidebandReceiver on the CPU (mfb engine, f32
+    ingest) and f32 noise for five of its one-block steps."""
+    wrx = WidebandReceiver(
+        WidebandChannelizer(9.6e6, 2.4e6, [-1.5e6, 1.8e6], device="cpu"),
+        Receiver(0, device="cpu"))
+    noise = np.random.default_rng(1).standard_normal(5 * wrx.block_wide(1))
+    return wrx, (0.3 * noise).astype(np.float32)
+
+
+def _copies_run(tmp_path):
+    rx = Receiver(0, device="cpu")
+    rx.run(_noise_u8(2 * rx.block_size_u8(1)))
+    return 2
+
+
+def _copies_cli(tmp_path):
+    """Two full one-block steps, then the EOF flush of one aligned tail."""
+    rx = Receiver(0, device="cpu")
+    path = tmp_path / "cap.u8"
+    _noise_u8(2 * rx.block_size_u8(1) + rx.block_align_u8() + 7).tofile(path)
+    assert tcli.main(["0", "1", "--in", str(path), "--out",
+                      str(tmp_path / "o.raw"), "--blocks-per-step", "1",
+                      "--device", "cpu"]) == 0
+    return 3
+
+
+def _copies_stations(tmp_path):
+    rx = Receiver(0, device="cpu")
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"s{i}.u8"))
+        _noise_u8(2 * rx.block_size_u8(1) + 100, seed=i).tofile(paths[-1])
+    assert tcli.main(["0", "1", "--stations", ",".join(paths), "--wav-dir",
+                      str(tmp_path / "wav"), "--blocks-per-step", "1",
+                      "--device", "cpu"]) == 0
+    return 2
+
+
+def _copies_wideband_run(tmp_path):
+    """One copy of the whole capture, stepped as five rows."""
+    wrx, wide = _wideband()
+    wrx.run(wide)
+    return 1
+
+
+def _copies_wideband_stream(tmp_path):
+    """Two chunks of two steps, then the one whole block left over."""
+    wrx, wide = _wideband()
+    pieces = np.array_split(wide, 7)
+    assert len(list(wrx.stream(iter(pieces), scan_steps=2))) == 3
+    return 3
+
+
+def _copies_sharded_run(tmp_path):
+    """Two devices' shards (cpu and cpu:0), two steps each."""
+    rx = Receiver(0, device="cpu")
+    mesh = make_mesh(2, "channels", devices=[torch.device("cpu"),
+                                             torch.device("cpu", 0)])
+    sharded_run(rx, np.stack([_noise_u8(2 * rx.block_size_u8(1), seed=s)
+                              for s in range(2)]), mesh)
+    return 4
+
+
+ENTRY_PATHS = {"Receiver.run": _copies_run, "cli.main": _copies_cli,
+               "cli --stations": _copies_stations,
+               "WidebandReceiver.run": _copies_wideband_run,
+               "WidebandReceiver.stream": _copies_wideband_stream,
+               "sharded_run": _copies_sharded_run}
+
+
+@pytest.mark.parametrize("path", list(ENTRY_PATHS))
+def test_every_entry_path_copies_through_receiver_h2d(path, tmp_path):
+    """Each entry path moves its host blocks onto the device through
+    io/stream.py's to_device: one receiver.h2d a copy, and, where each
+    copy is one Receiver.step, as many as the steps."""
+    logger.set_tracing(True)
+    copies = ENTRY_PATHS[path](tmp_path)
+    logger.set_tracing(False)
+    spans, _ = logger.totals()
+    assert spans["receiver.h2d"][1] == copies
+    if not path.startswith("Wideband"):
+        assert spans["receiver.step"][1] == copies
+
+
+def test_host_tensor_shares_writable_memory_and_copies_read_only(tmp_path):
+    """A writable array becomes a tensor on its memory; a read-only
+    np.frombuffer block and a read-only memmap slice are copied once, with
+    no warning; a tensor, and a tensor already on the device, pass
+    through as the same object."""
+    a = _noise_u8(64)
+    assert np.shares_memory(host_tensor(a).numpy(), a)
+    path = tmp_path / "cap.u8"
+    a.tofile(path)
+    for ro in (np.frombuffer(a.tobytes(), dtype=np.uint8),
+               np.memmap(path, dtype=np.uint8, mode="r")[8:40]):
+        assert not ro.flags.writeable
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            t = host_tensor(ro)
+            on_dev = to_device(ro, "cpu")
+        for x in (t, on_dev):
+            assert not np.shares_memory(x.numpy(), ro)
+            np.testing.assert_array_equal(x.numpy(), ro)
+    t = torch.from_numpy(a)
+    assert host_tensor(t) is t and to_device(t, "cpu") is t
+
+
 def _rds_soft(splice_after: int | None = None):
     """RDS soft at 16 samples a symbol from rds/tx.py's groups; with
     splice_after, 56 zero bits follow that many groups."""
@@ -199,8 +318,8 @@ def test_rds_counters_count_corrected_bits():
 
 
 def _called_names(tree):
-    """String names passed to stage_scope / scope / named_scope / count,
-    and the f-string prefixes among them."""
+    """String names passed to stage_scope / scope / count, and the
+    f-string prefixes among them."""
     names, prefixes = set(), set()
     for node in ast.walk(tree):
         if not (isinstance(node, ast.Call) and node.args):
@@ -208,7 +327,7 @@ def _called_names(tree):
         fn = node.func
         fname = fn.id if isinstance(fn, ast.Name) else getattr(
             fn, "attr", None)
-        if fname not in ("scope", "stage_scope", "named_scope", "count"):
+        if fname not in ("scope", "stage_scope", "count"):
             continue
         arg = node.args[0]
         if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
