@@ -324,7 +324,8 @@ def _stats(on: bool):
 
 def _print_stats(launches0: int) -> None:
     """--stats' table: each span's count, its mean and self ms a step
-    (self: less its child spans), its total s; the RDS counters; the CUDA
+    (self: less its child spans), its total s; the copies onto the device
+    by way (h2d.pinned, h2d.pageable); the RDS counters; the CUDA
     kernel launches a step (build.LAUNCHES).  A step is one
     Receiver.step."""
     from sdr_tpu_torch.io import logger
@@ -342,6 +343,9 @@ def _print_stats(launches0: int) -> None:
         print(f"  {name:<20} {n:>7} {total / steps * 1e3:>10.3f} "
               f"{own[name] / steps * 1e3:>10.3f} {total:>9.3f}",
               file=sys.stderr)
+    print(f"h2d: {counters.get('h2d.pinned', 0)} copies from page-locked "
+          f"memory, {counters.get('h2d.pageable', 0)} pageable",
+          file=sys.stderr)
     if "rds.windows" in counters:
         w, g = counters["rds.windows"], counters.get("rds.groups", 0)
         print(f"rds: {w} windows, {g} groups"

@@ -74,6 +74,9 @@ NAMES = (
     # the receiver's host side (models/receiver.py; receiver.h2d is
     # io/stream.py's to_device, every entry path's copy onto the device)
     "receiver.run", "receiver.h2d", "receiver.step",
+    # counters of receiver.h2d, one a copy: it read page-locked host
+    # memory (a reused block registered by io/stream.py HostPins), or not
+    "h2d.pinned", "h2d.pageable",
     # its stages, inside receiver.step
     "rf_frontend", "demod", "mono_path", "if_filters", "ifbank_fused",
     "ifbank_fused_mix", "carrier_ff_pair", "carrier_ff_from_sums",

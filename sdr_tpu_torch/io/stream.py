@@ -8,7 +8,10 @@ Port of sdr_tpu/io/stream.py.  Reference semantics:
 
 The device functions run on whatever device their tensor lives on; the
 host readers hand out numpy blocks, and `to_device` is the one way every
-entry point moves a host block onto the device.
+entry point moves a host block onto the device.  A host block that comes
+back call after call (a reader's reused buffer) is registered as
+page-locked memory once (`HostPins`), so its copy onto a CUDA device runs
+at the DMA rate and not through CUDA's staging of pageable memory.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import BinaryIO, Iterator
 import numpy as np
 import torch
 
-from sdr_tpu_torch.io.logger import stage_scope
+from sdr_tpu_torch.io.logger import count, stage_scope
 
 
 def u8_to_f32(raw: torch.Tensor) -> torch.Tensor:
@@ -64,12 +67,96 @@ def host_tensor(x) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+def _cuda_register(ptr: int, nbytes: int) -> bool:
+    """cudaHostRegister(ptr, nbytes, cudaHostRegisterPortable): whether
+    the range is now page-locked for every device.  A refusal is also the
+    runtime's last error, which the check after torch's next kernel launch
+    would raise; one small launch here reads it out and drops it."""
+    cudart = torch.cuda.cudart()
+    if cudart.cudaHostRegister(ptr, nbytes, 1) == cudart.cudaError.success:
+        return True
+    try:
+        torch.zeros(1, device="cuda")
+    except RuntimeError:
+        pass
+    return False
+
+
+def _cuda_unregister(ptr: int) -> None:
+    torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(ptr))
+
+
+class HostPins:
+    """The one host block that `to_device` keeps page-locked.
+
+    `pinned(t)` decides, from the CPU tensor alone, whether its copy onto
+    a CUDA device reads page-locked memory.  A contiguous block whose
+    memory (address and bytes) is the previous call's is the pattern of a
+    caller that reuses its read buffer: the block's whole storage is
+    registered then, once, and every later block inside that range is
+    copied from it.  One range is held at a time; when another buffer
+    starts repeating, the old one is unregistered.  A range registration
+    refused is remembered and not tried again.  A fresh block each call
+    never repeats, and costs one comparison.
+
+    The registered storage and the previous call's are held (strong
+    references), so neither is freed while it is a key: an address that
+    comes back is the same live memory, never a new block the allocator
+    put where a freed one was.  `register(ptr, nbytes) -> bool` and
+    `unregister(ptr)` are the CUDA runtime's calls; tests pass fakes."""
+
+    def __init__(self, register=_cuda_register, unregister=_cuda_unregister):
+        self.register, self.unregister = register, unregister
+        self._last = None        # (ptr, nbytes, storage) of the last block
+        self._held = None        # (lo, hi, storage) of the registered range
+        self._refused = set()    # (lo, hi) ranges registration refused
+
+    def pinned(self, t: torch.Tensor) -> bool:
+        if not t.is_contiguous() or t.numel() == 0:
+            return False
+        ptr, nbytes = t.data_ptr(), t.nbytes
+        held = self._held
+        if held is not None and held[0] <= ptr and ptr + nbytes <= held[1]:
+            return True
+        if t.is_pinned():
+            return True
+        last, storage = self._last, t.untyped_storage()
+        self._last = (ptr, nbytes, storage)
+        if last is None or last[:2] != (ptr, nbytes):
+            return False
+        lo = storage.data_ptr()
+        key = (lo, lo + storage.nbytes())
+        if key in self._refused:
+            return False
+        if held is not None:
+            self._held = None
+            self.unregister(held[0])
+        if not self.register(lo, key[1] - lo):
+            self._refused.add(key)
+            return False
+        self._held = (*key, storage)
+        return True
+
+
+_PINS = HostPins()
+
+
 def to_device(x, device) -> torch.Tensor:
     """A host block (numpy array or tensor) on `device`, contiguous, inside
     the span receiver.h2d: the program's one copy of its input onto the
-    device.  A block already there is returned as it is."""
+    device.  A block already there is returned as it is.  The copy is
+    synchronous: on return the caller may overwrite its block.  Onto a
+    CUDA device, a CPU block that `HostPins` finds page-locked (a reused
+    buffer, registered the second time it comes) is read by DMA; counters
+    h2d.pinned and h2d.pageable (every other call) say which way it
+    went."""
     with stage_scope("receiver.h2d"):
-        return host_tensor(x).to(device).contiguous()
+        t = host_tensor(x)
+        pinned = (t.device.type == "cpu"
+                  and torch.device(device).type == "cuda"
+                  and _PINS.pinned(t))
+        count("h2d.pinned" if pinned else "h2d.pageable", 1)
+        return t.to(device).contiguous()
 
 
 def read_u8_blocks(stream: BinaryIO, block_size: int) -> Iterator[np.ndarray]:

@@ -196,13 +196,16 @@ ENTRY_PATHS = {"Receiver.run": _copies_run, "cli.main": _copies_cli,
 @pytest.mark.parametrize("path", list(ENTRY_PATHS))
 def test_every_entry_path_copies_through_receiver_h2d(path, tmp_path):
     """Each entry path moves its host blocks onto the device through
-    io/stream.py's to_device: one receiver.h2d a copy, and, where each
-    copy is one Receiver.step, as many as the steps."""
+    io/stream.py's to_device: one receiver.h2d a copy, counted once as
+    h2d.pinned or h2d.pageable, and, where each copy is one Receiver.step,
+    as many as the steps."""
     logger.set_tracing(True)
     copies = ENTRY_PATHS[path](tmp_path)
     logger.set_tracing(False)
-    spans, _ = logger.totals()
+    spans, counters = logger.totals()
     assert spans["receiver.h2d"][1] == copies
+    assert (counters.get("h2d.pinned", 0) + counters.get("h2d.pageable", 0)
+            == copies)
     if not path.startswith("Wideband"):
         assert spans["receiver.step"][1] == copies
 
@@ -376,7 +379,8 @@ def stereo_capture(tmp_path_factory):
 def test_stats_prints_the_span_table(stereo_capture, tmp_path, capsys,
                                      flags):
     """--stats: the span table over the steps (count, mean and self ms a
-    step, total s), the RDS counters with --rds, launches a step; no step
+    step, total s), the copies by way (all pageable onto the CPU), the RDS
+    counters with --rds, launches a step; no step
     latency line; tracing is off again afterwards."""
     assert tcli.main(flags + ["--in", stereo_capture, "--out",
                               str(tmp_path / "o.raw"), "--stats",
@@ -396,6 +400,9 @@ def test_stats_prints_the_span_table(stereo_capture, tmp_path, capsys,
     _, mean, own, _ = rows["receiver.step"]
     assert float(own) <= float(mean)
     assert "kernel launches a step: " in err
+    h2d = int(rows["receiver.h2d"][0])
+    assert (f"h2d: 0 copies from page-locked memory, {h2d} pageable"
+            in err)
     assert ("rds: " in err) == ("--rds" in flags)
     if "--rds" in flags:
         assert int(rows["rds.push"][0]) == steps
